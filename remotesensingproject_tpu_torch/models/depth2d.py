@@ -1,0 +1,264 @@
+"""Full 2-D depth computation with temporal propagation.
+
+Counterpart of ``remotesensingproject_tpu/models/depth2d.py`` (reference:
+Depth2DComputer, rslf_depth_computation.hpp:651-915, and
+rslf_depth_computation_core.hpp:901-1133):
+
+* edge confidence C_e for every (s, v, u), once;
+* claim masks initialized to the C_e masks;
+* passes over s_hat in center-outward order (the schedule never visits
+  plane 0 when S is even, as in the reference), stopping early once no
+  confident pixel is left unclaimed;
+* each pass: sweep of the still-unclaimed confident pixels of the s_hat
+  plane (CUDA kernel), merge, selective median (CUDA kernel), line
+  painting (CUDA kernel).  On the CPU the plain versions run instead.
+
+Reference quirks kept on purpose:
+* the median-filtered disparities drive propagation but are not written
+  back to the stored s_hat plane (except where the s = s_hat leg of the
+  painting re-paints a pixel with its filtered value);
+* a failed sweep (max score <= raw threshold) zeroes C_e and its mask at
+  that pixel but leaves the claim bit set;
+* propagation sources are all pixels passing the criterion, including
+  pixels claimed in earlier passes.
+
+The state lives on one device and each pass updates it in place.  The
+JAX package's TPU workarounds (v-slabs, static pass chunks, host-paced
+dispatch) have no counterpart: a Python loop over the schedule has the
+same semantics.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import DEFAULT_PARAMS, DepthParams
+from ..ops.edge_confidence import edge_confidence_volume
+from ..ops.median_pallas import selective_median_cuda
+from ..ops.normalize import normalize_volume
+from ..ops.propagation_pallas import propagate_cuda
+from ..ops.sweep_pallas_pixel import sweep_pile_pixel
+from ..types import DTYPE, f32, resolve_device
+
+
+@dataclasses.dataclass
+class Depth2DState:
+    """All mutable per-(s, v, u) planes of the 2-D computation."""
+
+    ce: torch.Tensor          # [S, V, U] edge confidence (sweep-mutated)
+    ce_mask: torch.Tensor     # [S, V, U] bool
+    disp_conf: torch.Tensor   # [S, V, U]
+    line_conf: torch.Tensor   # [1, 1, 1] (line mode is not ported yet)
+    best_depth: torch.Tensor  # [S, V, U]
+    rbar: torch.Tensor        # [S, V, U, C]
+    claim: torch.Tensor       # [S, V, U] bool (True = unclaimed)
+
+
+def state_from_numpy(arrays: Mapping[str, np.ndarray],
+                     device) -> Depth2DState:
+    """A state from numpy arrays in the JAX package's layout (the fields
+    of its ``Depth2DState``: ``[S, V, U]`` planes, ``rbar`` ``[S, V, U,
+    C]``), so one JAX pass and one port pass can start from the same
+    mid-run state."""
+    dev = torch.device(device)
+
+    def conv(name, dtype):
+        return torch.as_tensor(np.array(arrays[name]),
+                               device=dev).to(dtype).contiguous()
+
+    return Depth2DState(
+        ce=conv("ce", DTYPE), ce_mask=conv("ce_mask", torch.bool),
+        disp_conf=conv("disp_conf", DTYPE),
+        line_conf=conv("line_conf", DTYPE),
+        best_depth=conv("best_depth", DTYPE), rbar=conv("rbar", DTYPE),
+        claim=conv("claim", torch.bool))
+
+
+def center_outward_schedule(dim_s: int) -> list:
+    """The reference's s_hat visiting order (core.hpp:981-990)."""
+    s_hat = int(np.floor(dim_s / 2.0))
+    order = [s_hat]
+    for off in range(1, dim_s - s_hat):
+        order.append(s_hat + off)
+        if s_hat - off > -1:
+            order.append(s_hat - off)
+    return order
+
+
+def _pass_fn(epis: torch.Tensor, frames: torch.Tensor, state: Depth2DState,
+             s_hat: int, *, dim_d: int, params: DepthParams,
+             d_bounds: Tuple[float, float],
+             dmin_s_v_u: Optional[torch.Tensor] = None,
+             dmax_s_v_u: Optional[torch.Tensor] = None) -> Depth2DState:
+    """One center-outward pass (sweep + merge + median + propagation),
+    updating ``state`` in place.  Per-pixel bounds are given at the
+    bounds-edited levels and None at uniform ones."""
+    if params.score_version not in ("edge", "disp"):
+        raise NotImplementedError("line mode is not ported yet")
+    ce_p = state.ce[s_hat]
+    mask_p = state.ce_mask[s_hat]
+    zero = torch.zeros((), dtype=DTYPE, device=epis.device)
+
+    # the reference ANDs the edge mask into the claim plane in place
+    # before collecting pixels (core.hpp:510-513)
+    active = mask_p & state.claim[s_hat]
+    state.claim[s_hat] = active
+
+    dmin_v_u = dmax_v_u = None
+    if dmin_s_v_u is not None:
+        dmin_v_u = dmin_s_v_u[s_hat].contiguous()
+        dmax_v_u = dmax_s_v_u[s_hat].contiguous()
+    res = sweep_pile_pixel(epis, d_bounds[0], d_bounds[1], dim_d, s_hat,
+                           params, active, dmin_v_u, dmax_v_u)
+
+    ok = res.best_score > params.raw_score_threshold
+    good = active & ok
+    bad = active & ~ok
+    ce_new = torch.where(bad, zero, ce_p)
+    mask_new = mask_p & ~bad
+    depth_new = torch.where(good, res.best_depth, state.best_depth[s_hat])
+    conf_new = torch.where(
+        good, ce_new * torch.abs(res.best_score - res.score_mean),
+        state.disp_conf[s_hat])
+    rbar_new = torch.where(good[..., None], res.rbar, state.rbar[s_hat])
+    state.ce[s_hat] = ce_new
+    state.ce_mask[s_hat] = mask_new
+    state.disp_conf[s_hat] = conf_new
+    state.best_depth[s_hat] = depth_new
+    state.rbar[s_hat] = rbar_new
+
+    # selective median of the s_hat plane, gated by the post-sweep mask;
+    # the filtered values drive propagation but are not stored
+    filtered = selective_median_cuda(depth_new, frames[s_hat], mask_new,
+                                     params.median_filter_size,
+                                     params.median_filter_epsilon)
+    if params.score_version == "disp":
+        source_mask = conf_new > params.disp_score_threshold
+    else:
+        source_mask = mask_new
+    propagate_cuda(state.claim, frames, filtered, rbar_new, source_mask,
+                   s_hat, params.slope_factor, params.propagation_epsilon,
+                   [(state.best_depth, filtered),
+                    (state.disp_conf, conf_new)])
+    return state
+
+
+def _as_tensor(x, device: torch.device) -> torch.Tensor:
+    t = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
+    if t.dtype == torch.float64:
+        t = t.to(DTYPE)
+    return t.to(device)
+
+
+class Depth2DComputer:
+    """Driver mirroring Depth2DComputer's ctor / run / getters.
+
+    Runs on CUDA unless ``device`` names another device."""
+
+    def __init__(self, epis_v_s_u_c, dmin: float, dmax: float, dim_d: int,
+                 epi_scale_factor: float = -1.0,
+                 params: DepthParams = DEFAULT_PARAMS, device=None):
+        self.device = resolve_device(device)
+        epis = _as_tensor(epis_v_s_u_c, self.device)
+        if epis.dim() == 3:
+            epis = epis[..., None]
+        self.epis = normalize_volume(epis, epi_scale_factor).contiguous()
+        self.dim_d = dim_d
+        self.dmin = float(dmin)
+        self.dmax = float(dmax)
+        self.params = params
+        self.accept_all = False
+        # per-pixel bounds, editable by the pyramid; materialized lazily
+        self._dmin_arr: Optional[torch.Tensor] = None
+        self._dmax_arr: Optional[torch.Tensor] = None
+        self._bounds_edited = False
+        self.state: Optional[Depth2DState] = None
+        self.passes_run = 0
+
+    def _full_bounds(self, value: float) -> torch.Tensor:
+        V, S, U, _ = self.epis.shape
+        return torch.full((S, V, U), f32(value), dtype=DTYPE,
+                          device=self.device)
+
+    @property
+    def dmin_s_v_u(self) -> torch.Tensor:
+        if self._dmin_arr is None:
+            self._dmin_arr = self._full_bounds(self.dmin)
+        return self._dmin_arr
+
+    @property
+    def dmax_s_v_u(self) -> torch.Tensor:
+        if self._dmax_arr is None:
+            self._dmax_arr = self._full_bounds(self.dmax)
+        return self._dmax_arr
+
+    # -- pyramid hooks (rslf_depth_computation.hpp:196-215) -------------
+
+    def set_accept_all(self, accept_all: bool):
+        self.accept_all = accept_all
+
+    def set_bounds(self, dmin_s_v_u: torch.Tensor, dmax_s_v_u: torch.Tensor):
+        self._dmin_arr = dmin_s_v_u.to(self.device, DTYPE).contiguous()
+        self._dmax_arr = dmax_s_v_u.to(self.device, DTYPE).contiguous()
+        self._bounds_edited = True
+
+    # -------------------------------------------------------------------
+
+    def initial_state(self) -> Depth2DState:
+        """Edge confidence and the zeroed planes before the first pass."""
+        V, S, U, C = self.epis.shape
+        ce_vsu, mask_vsu = edge_confidence_volume(self.epis, self.params)
+        ce = ce_vsu.permute(1, 0, 2).contiguous()
+        ce_mask = mask_vsu.permute(1, 0, 2).contiguous()
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=DTYPE, device=self.device)
+
+        return Depth2DState(ce=ce, ce_mask=ce_mask, disp_conf=zeros(S, V, U),
+                            line_conf=zeros(1, 1, 1),
+                            best_depth=zeros(S, V, U),
+                            rbar=zeros(S, V, U, C), claim=ce_mask.clone())
+
+    def run(self) -> Depth2DState:
+        if self.params.fast:
+            raise NotImplementedError("fast mode is not ported yet")
+        V, S, U, C = self.epis.shape
+        frames = self.epis.permute(1, 0, 2, 3).contiguous()  # [S, V, U, C]
+        state = self.initial_state()
+        bounds = {}
+        if self._bounds_edited:
+            bounds = dict(dmin_s_v_u=self.dmin_s_v_u,
+                          dmax_s_v_u=self.dmax_s_v_u)
+        self.passes_run = 0
+        for s_hat in center_outward_schedule(S):
+            _pass_fn(self.epis, frames, state, s_hat, dim_d=self.dim_d,
+                     params=self.params, d_bounds=(self.dmin, self.dmax),
+                     **bounds)
+            self.passes_run += 1
+            # a pass on a state with nothing left to claim is a no-op
+            if not bool(torch.any(state.ce_mask & state.claim)):
+                break
+        self.state = state
+        return state
+
+    # -- getters mirroring the reference --------------------------------
+
+    def get_depths_s_v_u(self) -> torch.Tensor:
+        return self.state.best_depth
+
+    def get_valid_depths_mask_s_v_u(self) -> torch.Tensor:
+        """Validity per score_version (rslf_depth_computation.hpp:893-915);
+        the edge branch thresholds the C_e values, not the stored mask."""
+        if self.accept_all:
+            return torch.ones_like(self.state.ce, dtype=torch.bool)
+        p = self.params
+        if p.score_version == "disp":
+            return self.state.disp_conf > p.disp_score_threshold
+        return self.state.ce > p.edge_score_threshold
+
+    def get_epis(self) -> torch.Tensor:
+        return self.epis

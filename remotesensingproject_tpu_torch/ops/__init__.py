@@ -1,0 +1,1 @@
+"""Operators of the port: plain PyTorch versions and CUDA kernel wrappers."""

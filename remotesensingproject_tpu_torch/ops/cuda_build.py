@@ -1,0 +1,137 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface and loaded with ``ctypes``.  The
+build happens at first use, into ``build/kernels/`` beside the package
+(listed in ``.gitignore``); the file name carries a hash of the sources
+and flags, so an edited kernel is rebuilt and an unchanged one is not.
+Nothing is built or loaded when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
+KERNELS = ("sweep_pixel", "median", "paint")
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+    # keep a*b + c as two roundings, like the plain PyTorch versions
+    "-fmad=false",
+    "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with "
+                       "the CUDA toolkit's nvcc")
+
+
+def _sources(name: str):
+    return [CSRC_DIR / f"{name}.cu", CSRC_DIR / "common.cuh"]
+
+
+def library_path(name: str) -> Path:
+    """Where the built library of kernel ``name`` lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources(name):
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"librslf_{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
+    """Build the named kernels that are not built yet, one ``nvcc``
+    process each, all started together.  Returns seconds per kernel
+    built (0.0 for one already built); raises on a failed build."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    times = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            times[name] = 0.0
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        times[name] = time.perf_counter() - t0
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return times
+
+
+def build_log(name: str) -> Optional[str]:
+    """nvcc's output (ptxas register and shared-memory report) of the
+    last build of ``name``, if it was built here."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else None
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            if not library_path(name).exists():
+                build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _libs[name] = lib
+        return lib
+
+
+def check(err: int, lib: ctypes.CDLL, error_string: str, what: str):
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        fn = getattr(lib, error_string)
+        fn.restype = ctypes.c_char_p
+        raise RuntimeError(f"{what} launch failed: {fn(err).decode()}")
+
+
+def stream_ptr(device: torch.device) -> ctypes.c_void_p:
+    """The current PyTorch CUDA stream of ``device`` as a C pointer."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def require(name: str, t: torch.Tensor, device: torch.device,
+            dtype=torch.float32):
+    """Check a kernel operand: on ``device``, of ``dtype``, contiguous."""
+    if t.device != device or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous {dtype} tensor on "
+                         f"{device}, got {t.dtype} on {t.device}"
+                         f"{'' if t.is_contiguous() else ' (strided)'}")

@@ -1,0 +1,75 @@
+"""Line painting: wrapper of the CUDA kernel ``csrc/paint.cu``.
+
+Counterpart of ``remotesensingproject_tpu/ops/propagation_pallas.py``,
+whose Pallas kernel ``_paint_kernel`` the CUDA kernel replaces.  Same
+contract as the plain version, ``ops.propagation.propagate``, which the
+wrapper runs on a CPU tensor, and bit for bit the same result; on a CUDA
+tensor it launches the kernel or raises.  Claim and targets are updated
+in place.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..types import DTYPE, chan_scale, f32
+from . import cuda_build
+from .propagation import propagate, source_offset_range
+
+def _paint_fn():
+    lib = cuda_build.load("paint")
+    fn = lib.rslf_paint
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [P, P, P, P, P, I, I, I, I, I, F, F, P, P, P, P, P]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def propagate_cuda(claim_s_v_u: torch.Tensor, frames_s_v_u_c: torch.Tensor,
+                   depth_f_v_u: torch.Tensor, rbar_v_u_c: torch.Tensor,
+                   source_mask_v_u: torch.Tensor, s_hat: int,
+                   slope_factor: float, epsilon: float,
+                   payloads: Sequence[Tuple[torch.Tensor, torch.Tensor]]):
+    """Drop-in for ``ops.propagation.propagate`` (bitwise equal)."""
+    dev = claim_s_v_u.device
+    if dev.type != "cuda":
+        return propagate(claim_s_v_u, frames_s_v_u_c, depth_f_v_u,
+                         rbar_v_u_c, source_mask_v_u, s_hat, slope_factor,
+                         epsilon, payloads)
+    S, V, U = claim_s_v_u.shape
+    C = frames_s_v_u_c.shape[-1]
+    if len(payloads) != 2:
+        raise NotImplementedError(
+            "the CUDA paint carries two payloads (depth, disp_conf)")
+    if C not in (1, 3):
+        raise NotImplementedError("the CUDA paint supports C in (1, 3)")
+    cuda_build.require("claim", claim_s_v_u, dev, torch.bool)
+    cuda_build.require("frames", frames_s_v_u_c, dev)
+    cuda_build.require("rbar", rbar_v_u_c, dev)
+    for tgt, src in payloads:
+        cuda_build.require("payload target", tgt, dev)
+        cuda_build.require("payload source", src, dev)
+
+    offs_num = depth_f_v_u * f32(slope_factor)
+    # sources carry their offset per unit ds, the others NaN
+    nan = torch.tensor(float("nan"), dtype=DTYPE, device=dev)
+    tag = torch.where(source_mask_v_u, offs_num, nan).contiguous()
+    rng = source_offset_range(offs_num, source_mask_v_u)
+    ptrs = [cuda_build.ptr(t) for tgt, src in payloads for t in (src, tgt)]
+    lib, fn = _paint_fn()
+    err = fn(cuda_build.ptr(claim_s_v_u), cuda_build.ptr(frames_s_v_u_c),
+             cuda_build.ptr(tag), cuda_build.ptr(rbar_v_u_c),
+             cuda_build.ptr(rng), S, V, U, C, int(s_hat), chan_scale(C),
+             float(np.float32(epsilon) ** 2), *ptrs,
+             cuda_build.stream_ptr(dev))
+    cuda_build.check(err, lib, "rslf_paint_error_string", "paint")
+    propagate_cuda.launches += 1
+    return claim_s_v_u, tuple(t for t, _ in payloads)
+
+
+#: kernel launches since the count was last set to 0
+propagate_cuda.launches = 0

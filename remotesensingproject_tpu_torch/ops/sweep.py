@@ -1,0 +1,160 @@
+"""Dense slope sweep with mean-shift radiance scoring (plain PyTorch).
+
+Counterpart of ``remotesensingproject_tpu/ops/sweep.py`` (the XLA path)
+and the plain version of the CUDA sweep in ``sweep_pallas_pixel.py``.
+Reference: compute_1D_depth_epi, rslf_depth_computation_core.hpp:480-661.
+
+Every (v, u) is swept densely; callers merge results at active pixels.
+Numerics mirrored exactly:
+
+* candidate disparities  D[d] = dmin + (d * (dmax - dmin)) / (dim_d - 1)
+  in float32, per pixel (core.hpp:545-548);
+* sheared sample index  I[s, d] = u + ((s_hat - s) * D[d]) * slope;
+* linear interpolation, a sample valid iff floor(I) >= 0 and
+  ceil(I) <= U - 1, with card_R the valid count;
+* ``mean_shift_max_iter`` truncated mean-shift iterations, NaN -> 0 and
+  r_bar floored at 0; the score uses the kernel of the LAST iteration
+  while the reported r_bar has all updates applied;
+* score = sum_s K / card_R, 0 where card_R == 0; first-max argmax over d;
+* score_mean is the sequential sum of the scores over d, / dim_d.
+
+Sums over s run in a fixed sequential order (s = 0, 1, ...), the order
+the CUDA kernel uses, so that the two agree on the card.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import DepthParams
+from ..types import DTYPE, chan_scale, channel_sumsq, div, f32
+
+
+class SweepResult(NamedTuple):
+    """Dense per-(v, u) sweep outputs (before masking/merge)."""
+
+    best_score: torch.Tensor  # [V, U] max_d score
+    score_mean: torch.Tensor  # [V, U] mean over all d slots
+    best_depth: torch.Tensor  # [V, U] disparity at the argmax d
+    rbar: torch.Tensor        # [V, U, C] converged dominant radiance
+    k_best: torch.Tensor      # [V, S, U] K(r - rbar) at the winning d
+                              # (zeros when with_k_best=False)
+
+
+def candidate_disparities(dmin: float, dmax: float, dim_d: int) -> np.ndarray:
+    """The uniform candidate grid with the reference's float32 op order
+    (core.hpp:548)."""
+    f = np.float32
+    rng = f(f(dmax) - f(dmin))
+    return np.array(
+        [f(f(dmin) + f(f(f(d) * rng) / f(dim_d - 1))) for d in range(dim_d)],
+        np.float32)
+
+
+def _sum_s(x: torch.Tensor) -> torch.Tensor:
+    """Sum over axis 1 (s), sequentially from s = 0."""
+    acc = x[:, 0]
+    for s in range(1, x.shape[1]):
+        acc = acc + x[:, s]
+    return acc
+
+
+def _radiances(epis, delta_v_u, ds_s, u_idx, slope, interpolation):
+    """Sheared radiance samples for one candidate plane.
+
+    Returns (valpos, valraw [V, S, U, C], valid [V, S, U] bool)."""
+    V, S, U, C = epis.shape
+    shift = ds_s[None, :, None] * delta_v_u[:, None, :] * slope  # [V, S, U]
+    idx = u_idx + shift
+
+    def gather(i):
+        ii = i.to(torch.int64)[..., None].expand(V, S, U, C)
+        return torch.gather(epis, 2, ii)
+
+    if interpolation == "nearest":
+        ri = torch.sign(idx) * torch.floor(torch.abs(idx) + 0.5)
+        valid = (ri >= 0) & (ri <= U - 1)
+        val = gather(torch.clamp(ri, 0, U - 1))
+    else:
+        fi = torch.floor(idx)
+        ci = torch.ceil(idx)
+        t = idx - fi
+        valid = (fi >= 0) & (ci <= U - 1)
+        a = gather(torch.clamp(fi, 0, U - 1))
+        b = gather(torch.clamp(ci, 0, U - 1))
+        tt = t[..., None]
+        val = (1.0 - tt) * a + tt * b
+    valid_c = valid[..., None]
+    zero = torch.zeros((), dtype=DTYPE, device=epis.device)
+    valraw = torch.where(valid_c, val, zero)
+    valpos = torch.where(valid_c, torch.clamp_min(val, 0.0), zero)
+    return valpos, valraw, valid
+
+
+def _mean_shift(valpos, valraw, valid, rbar0, params: DepthParams):
+    """Truncated mean shift; returns (sum_s K_last, rbar, K_last)."""
+    C = valraw.shape[-1]
+    a = f32(chan_scale(C) / (params.kernel_h * params.kernel_h))
+    validf = valid.to(DTYPE)
+    rbar = rbar0
+    k = torch.zeros(valid.shape, dtype=DTYPE, device=valraw.device)
+    for _ in range(params.mean_shift_max_iter):
+        diff = valraw - rbar[:, None]
+        ksq = a * channel_sumsq(diff)
+        k = torch.clamp_min(1.0 - ksq, 0.0) * validf       # [V, S, U]
+        sum_k = _sum_s(k)[..., None]                        # [V, U, 1]
+        sum_rk = _sum_s(valpos * k[..., None])              # [V, U, C]
+        rbar = torch.where(sum_k > 0, sum_rk / sum_k,
+                           torch.zeros((), dtype=DTYPE, device=k.device))
+    return _sum_s(k), rbar, k
+
+
+def sweep_pile(epis_v_s_u_c: torch.Tensor, dmin_v_u: torch.Tensor,
+               dmax_v_u: torch.Tensor, dim_d: int, s_hat: int,
+               params: DepthParams, with_k_best: bool = False) -> SweepResult:
+    """Dense sweep over all EPIs.
+
+    Args:
+      epis_v_s_u_c: ``[V, S, U, C]`` normalized volume.
+      dmin_v_u / dmax_v_u: ``[V, U]`` per-pixel disparity bounds.
+      dim_d: number of candidate disparities.
+      s_hat: reference temporal line.
+    """
+    V, S, U, C = epis_v_s_u_c.shape
+    dev = epis_v_s_u_c.device
+    s_hat = int(s_hat)
+    ds_s = float(s_hat) - torch.arange(S, dtype=DTYPE, device=dev)
+    u_idx = torch.arange(U, dtype=DTYPE, device=dev)
+    slope = f32(params.slope_factor)
+    rbar_init = epis_v_s_u_c[:, s_hat]                      # [V, U, C]
+
+    drange = dmax_v_u - dmin_v_u
+    den = torch.full_like(drange, float(dim_d - 1))
+    best_score = torch.full((V, U), -1.0, dtype=DTYPE, device=dev)
+    best_depth = torch.zeros((V, U), dtype=DTYPE, device=dev)
+    score_sum = torch.zeros((V, U), dtype=DTYPE, device=dev)
+    rbar_b = torch.zeros((V, U, C), dtype=DTYPE, device=dev)
+    k_b = torch.zeros((V, S, U), dtype=DTYPE, device=dev)
+    zero = torch.zeros((), dtype=DTYPE, device=dev)
+    for d in range(dim_d):
+        delta = dmin_v_u + (drange * float(d)) / den
+        valpos, valraw, valid = _radiances(
+            epis_v_s_u_c, delta, ds_s, u_idx, slope, params.interpolation)
+        card = _sum_s(valid.to(DTYPE))
+        score_num, rbar, k_last = _mean_shift(valpos, valraw, valid,
+                                              rbar_init, params)
+        score = torch.where(card > 0, score_num / card, zero)
+
+        better = score > best_score
+        best_score = torch.where(better, score, best_score)
+        best_depth = torch.where(better, delta, best_depth)
+        rbar_b = torch.where(better[..., None], rbar, rbar_b)
+        if with_k_best:
+            k_b = torch.where(better[:, None, :], k_last, k_b)
+        score_sum = score_sum + score
+    return SweepResult(best_score=best_score,
+                       score_mean=div(score_sum, float(dim_d)),
+                       best_depth=best_depth, rbar=rbar_b, k_best=k_b)

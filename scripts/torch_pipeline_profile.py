@@ -1,0 +1,84 @@
+#!/usr/bin/env python3
+"""Where the time of the PyTorch/CUDA port's pipeline goes, on one GPU.
+
+    python3 scripts/torch_pipeline_profile.py
+
+Runs the fine-to-coarse pipeline on the bench scene of ``chip_smoke.py``
+once to warm up, then once under ``torch.profiler``.  Prints one JSON
+line: the profiled wall time, the device time summed per CUDA kernel
+(the three ports by name, PyTorch's own kernels grouped), the device busy
+share (summed kernel time over wall time; one stream, so kernels do not
+overlap) and the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import torch  # noqa: E402
+
+from chip_smoke import DMAX, DMIN, D, card_line, synthetic_sequence  # noqa
+from remotesensingproject_tpu_torch.models.fine_to_coarse import \
+    FineToCoarse  # noqa: E402
+from remotesensingproject_tpu_torch.ops import cuda_build  # noqa: E402
+
+PORTS = {"sweep_pixel_kernel": "sweep_pixel",
+         "selective_median_kernel": "median", "paint_kernel": "paint"}
+
+
+def run(vol):
+    ftc = FineToCoarse(vol, DMIN, DMAX, D, device="cuda")
+    ftc.run()
+    out = ftc.get_results()
+    torch.cuda.synchronize()
+    return ftc, out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    cuda_build.build()
+    vol, _ = synthetic_sequence(torch, torch.device("cuda"))
+    run(vol)  # warm-up: allocator, library loads
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        ftc, _ = run(vol)
+        wall = time.perf_counter() - t0
+    by_kernel = {}
+    other = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if dev_us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        port = next((v for k, v in PORTS.items() if k in ev.key), None)
+        if port:
+            by_kernel[port] = by_kernel.get(port, 0.0) + dev_us / 1e3
+        else:
+            other[ev.key[:60]] = other.get(ev.key[:60], 0.0) + dev_us / 1e3
+    top_other = dict(sorted(other.items(), key=lambda kv: -kv[1])[:8])
+    busy_ms = sum(by_kernel.values()) + sum(other.values())
+    print(json.dumps({
+        "card": card_line(),
+        "wall_s": wall,
+        "level_seconds": ftc.level_seconds,
+        "passes": [c.passes_run for c in ftc.computers],
+        "device_ms_ports": by_kernel,
+        "device_ms_pytorch_total": sum(other.values()),
+        "device_ms_pytorch_top": top_other,
+        "device_busy_share": busy_ms / (wall * 1e3),
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,114 @@
+"""The CUDA kernels against their plain PyTorch versions on the card.
+
+CUDA kernels have no CPU mode, so these tests skip without a card; on a
+machine with an H100 (and no JAX) run them with
+``python -m pytest tests/test_torch_cuda.py --noconftest -q``.
+Median and paint must be bitwise equal; the sweep uses the tolerances of
+tests/test_torch_sweep.py."""
+
+import numpy as np
+import pytest
+import torch
+
+import oracle
+from remotesensingproject_tpu_torch.config import DepthParams
+from remotesensingproject_tpu_torch.models.depth2d import Depth2DComputer
+from remotesensingproject_tpu_torch.ops.median import selective_median
+from remotesensingproject_tpu_torch.ops.median_pallas import (
+    selective_median_cuda)
+from remotesensingproject_tpu_torch.ops.propagation import propagate
+from remotesensingproject_tpu_torch.ops.propagation_pallas import (
+    propagate_cuda)
+from remotesensingproject_tpu_torch.ops.sweep import sweep_pile
+from remotesensingproject_tpu_torch.ops.sweep_pallas_pixel import (
+    sweep_pile_pixel)
+
+pytestmark = pytest.mark.cuda
+TOL = {"best_score": 2e-5, "best_depth": 1e-6, "score_mean": 5e-5,
+       "rbar": 2e-5}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _vol(C, S=12, V=16, U=96, seed=0):
+    vol, _ = oracle.make_synthetic_lf(S=S, V=V, U=U, C=C, seed=seed,
+                                      dmin=-1.0, dmax=1.5)
+    return torch.from_numpy(vol / vol.max())
+
+
+@pytest.mark.parametrize("C,per_pixel,D", [(1, False, 24), (1, True, 24),
+                                           (3, True, 24), (1, False, 200)])
+def test_sweep_kernel_matches_plain(dev, C, per_pixel, D):
+    epis = _vol(C).to(dev)
+    V, S, U, _ = epis.shape
+    g = torch.Generator().manual_seed(C)
+    active = (torch.rand((V, U), generator=g) < 0.5).to(dev)
+    lo = torch.full((V, U), -1.0, device=dev)
+    hi = torch.full((V, U), 1.5, device=dev)
+    if per_pixel:
+        c = torch.rand((V, U), generator=g).to(dev) * 1.7 - 0.6
+        lo, hi = torch.clamp(c - 0.4, -1.0, 1.5), torch.clamp(c + 0.4, -1.0, 1.5)
+    kw = dict(dmin_v_u=lo, dmax_v_u=hi) if per_pixel else {}
+    n0 = sweep_pile_pixel.launches
+    got = sweep_pile_pixel(epis, -1.0, 1.5, D, S // 2, DepthParams(), active,
+                           **kw)
+    assert sweep_pile_pixel.launches == n0 + 1
+    want = sweep_pile(epis, lo, hi, D, S // 2, DepthParams())
+    m = active
+    for name, atol in TOL.items():
+        torch.testing.assert_close(getattr(got, name)[m],
+                                   getattr(want, name)[m], rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("C", [1, 3])
+def test_median_kernel_bitwise(dev, C):
+    g = torch.Generator().manual_seed(C)
+    src = (torch.randint(-8, 17, (40, 70), generator=g) / 8.0).to(dev)
+    frame = (torch.rand((40, 70, C), generator=g) * 0.3 + 0.3).to(dev)
+    mask = (torch.rand((40, 70), generator=g) < 0.6).to(dev)
+    got = selective_median_cuda(src, frame, mask, 5, 0.1)
+    assert torch.equal(got, selective_median(src, frame, mask, 5, 0.1))
+
+
+@pytest.mark.parametrize("C", [1, 3])
+def test_paint_kernel_bitwise(dev, C):
+    g = torch.Generator().manual_seed(10 + C)
+    S, V, U = 9, 12, 80
+    claim = (torch.rand((S, V, U), generator=g) < 0.7).to(dev)
+    frames = (torch.rand((S, V, U, C), generator=g) * 0.2 + 0.3).to(dev)
+    depth = (torch.randint(0, 11, (V, U), generator=g) * 0.25 - 1.0).to(dev)
+    rbar = frames[S // 2] + 0.01
+    sm = (torch.rand((V, U), generator=g) < 0.5).to(dev)
+    conf = torch.rand((V, U), generator=g).to(dev)
+    tgts = [torch.rand((S, V, U), generator=g).to(dev) for _ in range(2)]
+
+    def run(fn):
+        cl, t = claim.clone(), [x.clone() for x in tgts]
+        fn(cl, frames, depth, rbar, sm, 4, 1.0, 0.1,
+           [(t[0], depth), (t[1], conf)])
+        return cl, t
+
+    cl_k, t_k = run(propagate_cuda)
+    cl_p, t_p = run(propagate)
+    assert torch.equal(cl_k, cl_p)
+    assert not torch.equal(cl_k, claim)
+    for a, b in zip(t_k, t_p):
+        assert torch.equal(a, b)
+
+
+def test_depth2d_on_card_matches_cpu(dev):
+    vol = _vol(1, S=8, V=12, U=64, seed=3).numpy()
+    ref = Depth2DComputer(vol, -1.0, 1.5, 9, device="cpu")
+    ref.run()
+    out = Depth2DComputer(vol, -1.0, 1.5, 9, device=dev)
+    out.run()
+    for name in ("claim", "ce_mask"):
+        assert torch.equal(getattr(out.state, name).cpu(),
+                           getattr(ref.state, name))
+    torch.testing.assert_close(out.state.best_depth.cpu(),
+                               ref.state.best_depth, rtol=0, atol=1e-4)

@@ -1,0 +1,103 @@
+"""The port stands alone and never falls back to the CPU on its own."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import oracle
+from remotesensingproject_tpu_torch.cli import main as cli
+from remotesensingproject_tpu_torch.models.depth2d import Depth2DComputer
+from remotesensingproject_tpu_torch.models.fine_to_coarse import FineToCoarse
+from remotesensingproject_tpu_torch.types import resolve_device
+
+PKG = pathlib.Path(__file__).resolve().parent.parent / \
+    "remotesensingproject_tpu_torch"
+FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|remotesensingproject_tpu)(\.|\s|$)",
+    re.M)
+
+
+def test_sources_import_no_jax_and_no_jax_package():
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) >= 15
+    for f in files:
+        assert not FORBIDDEN.search(f.read_text()), f
+
+
+def test_importing_every_module_loads_no_jax():
+    mods = [".".join(p.relative_to(PKG.parent).with_suffix("").parts)
+            for p in sorted(PKG.rglob("*.py"))]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'remotesensingproject_tpu')]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True,
+                   cwd=PKG.parent, timeout=120)
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    vol, _ = oracle.make_synthetic_lf(S=4, V=12, U=24, C=1, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Depth2DComputer(vol, -1.0, 1.5, 5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FineToCoarse(vol, -1.0, 1.5, 5)
+    _write_frames(vol, tmp_path / "frames")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["fine-to-coarse", str(tmp_path / "frames"), "--ext",
+                  "png", "--out", str(tmp_path / "out")])
+
+
+def _write_frames(vol, folder):
+    from PIL import Image
+
+    folder.mkdir(parents=True)
+    u8 = np.clip(vol * 255.0, 0, 255).astype(np.uint8)
+    for s in range(u8.shape[1]):
+        Image.fromarray(u8[:, s, :, 0]).save(folder / f"frame_{s:03d}.png")
+    return u8
+
+
+def test_cli_on_cpu_writes_results(tmp_path):
+    vol, _ = oracle.make_synthetic_lf(S=4, V=12, U=24, C=1, seed=2)
+    u8 = _write_frames(vol, tmp_path / "frames")
+    cli.main(["fine-to-coarse", str(tmp_path / "frames"), "--ext", "png",
+              "--dmin", "-1", "--dmax", "1.5", "--dim-d", "5", "--out",
+              str(tmp_path / "out"), "--device", "cpu"])
+    res = np.load(tmp_path / "out" / "fine_to_coarse_results.npz")
+    ftc = FineToCoarse(u8, -1.0, 1.5, 5, device="cpu")
+    ftc.run()
+    fused, validity = ftc.get_results()
+    np.testing.assert_array_equal(res["fused"], fused.numpy())
+    np.testing.assert_array_equal(res["validity"], validity.numpy())
+
+
+def test_io_matches_jax_package(tmp_path):
+    from remotesensingproject_tpu.utils import io as jio
+    from remotesensingproject_tpu_torch.utils import io as tio
+
+    vol, _ = oracle.make_synthetic_lf(S=3, V=6, U=10, C=1, seed=3)
+    _write_frames(vol, tmp_path / "f")
+    (tmp_path / "f" / "notes.txt").write_text("skip me")
+    assert tio.list_images(str(tmp_path / "f"), "png") == \
+        jio.list_images(str(tmp_path / "f"), ".png")
+    imgs = tio.read_imgs_from_folder(str(tmp_path / "f"), "png")
+    want = jio.read_imgs_from_folder(str(tmp_path / "f"), "png",
+                                     use_native=False)
+    np.testing.assert_array_equal(imgs, want)
+    np.testing.assert_array_equal(tio.build_epis_from_imgs(imgs),
+                                  jio.build_epis_from_imgs(want))
+    with pytest.raises(FileNotFoundError):
+        tio.read_imgs_from_folder(str(tmp_path / "f"), "tif")
