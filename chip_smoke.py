@@ -10,25 +10,42 @@ Phases, one line each (details on further lines):
 2. each kernel against its plain PyTorch version on the card, at the
    inputs of the first level-0 pass of the bench scene (SkysatLR18 [120]:
    S=100, V=540, U=960, D=120, d in [-1, 4]), plus per-pixel bounds and
-   a C=3 slab: median and paint bitwise, the sweep within the tolerances
-   of tests/test_torch_sweep.py; each kernel's time, its plain version's,
-   and the least time the card could take (``bound_ms``);
+   a C=3 slab for the pixel sweep; the row sweep at the pile's input (all
+   rows of that scene, s_hat=50), with k_best and at C=4 on 64-row slabs;
+   median and paint at C=1 and at C=4.  Every kernel bitwise; each
+   kernel's time, its plain version's, and the least time the card could
+   take (``bound_ms``);
 3. the full fine-to-coarse pipeline on that scene through
    ``FineToCoarse(...).run(); get_results()``, with every kernel's launch
-   count (each must be > 0), the wall time, and the quality gate of
-   bench.py: RMSE and P90 of |fused - gt| over the pre-run edge mask
-   within 0.1 px of REF_ANCHOR.json's compiled-reference numbers;
-4. a ``{"kernels": [...]}`` JSON line, the card line again, and last
+   count, the wall time, and the quality gate of bench.py: RMSE and P90 of
+   |fused - gt| over the pre-run edge mask within 0.1 px of
+   REF_ANCHOR.json's compiled-reference numbers;
+4. the pile (``Depth1DComputerPile``: one s_hat, all rows) on that scene,
+   with its wall time, launches and the error of its depths at s_hat, then
+   on the bundled data/strips16 scene with the gate of
+   tests/test_sample_data.py;
+5. the four-band pipeline: ``FineToCoarse`` on the bench scene's draws
+   with four fixed per-layer band gains (100x540x960x4), with wall time per
+   level, launches, peak memory and RMSE / P90 against ground truth; its
+   fused map must be finite;
+6. the tile sweep against its plain version, in the tile and the pixel
+   mode, at the first-pass inputs of level 1 of phase 5's pyramid (k_best
+   on a 64-row slab), bitwise;
+7. a ``{"kernels": [...]}`` JSON line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
-Exits non-zero, printing no result, without a CUDA device, without the
-package beside it, or when any phase fails.  Imports nothing of JAX.
+Launch counts are set to 0 just before each main path (phases 3, 4, 5)
+and read just after; each path fails if one of its kernels never
+launched.  Exits non-zero, printing no result, without a CUDA device,
+without the package beside it, or when any phase fails.  Imports nothing
+of JAX.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -43,8 +60,13 @@ MARGIN_PX = 0.10
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
-SWEEP_TOL = {"best_score": 2e-5, "best_depth": 1e-6, "score_mean": 5e-5,
-             "rbar": 2e-5}
+SWEEP_OUTS = ("best_score", "score_mean", "best_depth", "rbar", "k_best")
+# per-layer gains of the four bands (blue, green, red, near-infrared) of
+# the four-band scene; fixed, so the scene keeps the bench scene's draws
+BAND_GAINS = np.array([[1.00, 0.85, 0.70, 0.95], [0.60, 0.75, 0.90, 1.00],
+                       [0.90, 1.00, 0.65, 0.55], [0.70, 0.60, 0.95, 0.80],
+                       [0.85, 0.95, 0.80, 0.60], [0.55, 0.70, 0.60, 0.90]],
+                      np.float32)
 
 
 def card_line() -> str:
@@ -56,10 +78,12 @@ def card_line() -> str:
         else f"nvidia-smi failed: {out.stderr.strip()}"
 
 
-def synthetic_sequence(torch, dev, seed=0):
+def synthetic_sequence(torch, dev, seed=0, gains=None):
     """The layered moving-strip scene of bench.py's synthetic_sequence
     (same numpy draws, so the same volume and ground truth), with the
-    [V, S, U, 1] broadcast made on the card."""
+    [V, S, U, 1] broadcast made on the card.  With ``gains`` ([layers, C])
+    each layer's radiance is scaled per band, as bench.py's
+    synthetic_sequence_rgb does, giving [V, S, U, C]."""
     rng = np.random.default_rng(seed)
     s_hat = S // 2
     n_layers = 6
@@ -88,8 +112,10 @@ def synthetic_sequence(torch, dev, seed=0):
     val0 = 0.55 + (np.sin(2 * np.pi * src[..., None] / lams[owner]
                           + phs[owner]) * amps[owner]).sum(-1).astype(
                               np.float32)
-    vol = (torch.as_tensor(val0, device=dev)[None, :, :, None]
-           + torch.as_tensor(rowmod, device=dev)[:, None, None, None])
+    val = torch.as_tensor(val0, device=dev)[None, :, :, None]
+    if gains is not None:
+        val = val * torch.as_tensor(gains[owner], device=dev)[None]
+    vol = val + torch.as_tensor(rowmod, device=dev)[:, None, None, None]
     return vol.contiguous(), disps[owner].astype(np.float32)
 
 
@@ -114,6 +140,19 @@ def bound(nbytes, nflops):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+def ptxas_summary(log: str):
+    """(kernel, registers line) pairs of nvcc's -Xptxas -v output."""
+    out, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry .*?\d([a-z_]+_kernel)(ILi(\d+)E)?",
+                      ln)
+        if m:
+            name = m.group(1) + (f"<{m.group(3)}>" if m.group(3) else "")
+        elif name and ("registers" in ln or "spill" in ln):
+            out.append((name, ln.split(":", 1)[-1].strip()))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -127,6 +166,8 @@ def main() -> int:
             Depth2DComputer
         from remotesensingproject_tpu_torch.models.fine_to_coarse import \
             FineToCoarse
+        from remotesensingproject_tpu_torch.models.pile import \
+            Depth1DComputerPile
         from remotesensingproject_tpu_torch.ops import cuda_build
         from remotesensingproject_tpu_torch.ops.median import \
             selective_median
@@ -136,12 +177,18 @@ def main() -> int:
         from remotesensingproject_tpu_torch.ops.propagation_pallas import \
             propagate_cuda
         from remotesensingproject_tpu_torch.ops.sweep import sweep_pile
+        from remotesensingproject_tpu_torch.ops.sweep_pallas import (
+            candidate_grid, sweep_pile_rows, sweep_rows_plain)
+        from remotesensingproject_tpu_torch.ops.sweep_pallas_perpixel import (
+            sweep_pile_tiles, tile_quantized_bounds)
         from remotesensingproject_tpu_torch.ops.sweep_pallas_pixel import (
             flops_per_sample_step, sweep_pile_pixel)
         from remotesensingproject_tpu_torch.ops.edge_confidence import \
             edge_confidence_volume
         from remotesensingproject_tpu_torch.ops.normalize import \
             normalize_volume
+        from remotesensingproject_tpu_torch.utils.io import (
+            build_epis_from_imgs, read_imgs_from_folder)
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -157,6 +204,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     kind = torch.cuda.get_device_name(0)
+    t_start = time.perf_counter()
     print(f"phase 1 card: {card} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     t0 = time.perf_counter()
@@ -164,9 +212,8 @@ def main() -> int:
     print(f"phase 1 build: {time.perf_counter() - t0:.2f}s wall, per kernel "
           + ", ".join(f"{k} {v:.2f}s" for k, v in build_s.items()))
     for name in cuda_build.KERNELS:
-        for ln in (cuda_build.build_log(name) or "").splitlines():
-            if "registers" in ln or "spill" in ln:
-                print(f"  ptxas {name}: {ln.strip()}")
+        for fn, ln in ptxas_summary(cuda_build.build_log(name) or ""):
+            print(f"  ptxas {name} {fn}: {ln}")
 
     # ---- phase 2: kernels vs plain versions at level-0 pass-1 inputs ----
     params = DEFAULT_PARAMS
@@ -182,52 +229,89 @@ def main() -> int:
     records = {}
     failures = []
 
-    def check_sweep(tag, ep, act, lo, hi, per_pixel):
-        Vs, Ss, Us, Cs = ep.shape
-        kw = dict(dmin_v_u=lo, dmax_v_u=hi) if per_pixel else {}
+    def check_same(tag, got, want, mask):
+        """Bitwise agreement of two SweepResults at the pixels of mask."""
+        err, same = 0.0, True
+        for name in SWEEP_OUTS:
+            a, b = getattr(got, name), getattr(want, name)
+            if a is None:
+                continue
+            if name == "k_best":
+                a, b = a.permute(0, 2, 1), b.permute(0, 2, 1)
+            a, b = a[mask], b[mask]
+            err = max(err, float((a - b).abs().max()))
+            same = same and torch.equal(a, b)
+        flips = int((got.best_depth[mask] != want.best_depth[mask]).sum())
+        if not same:
+            failures.append(f"{tag} not bitwise equal (max err {err}, "
+                            f"{flips} depth picks differ)")
+        return err, flips, same
+
+    def check_kernel(tag, run, plain, mask, nbytes, Cs):
+        """A sweep kernel against its plain version, bitwise at mask;
+        ``run(work_count)`` launches it.  Returns (record, its result)."""
         work = torch.zeros(1, dtype=torch.int64, device=dev)
-        got = sweep_pile_pixel(ep, DMIN, DMAX, D, s_hat, params, act,
-                               work_count=work, **kw)
+        got = run(work)
         torch.cuda.synchronize()
         out = {}
-        t_plain = time_ms(torch, lambda: out.setdefault(
-            "want", sweep_pile(ep, lo, hi, D, s_hat, params)), reps=1)
-        want = out["want"]
-        err = 0.0
-        for name, tol in SWEEP_TOL.items():
-            e = float((getattr(got, name)[act] - getattr(want, name)[act])
-                      .abs().max())
-            err = max(err, e)
-            if not e <= tol:
-                failures.append(f"sweep {tag} {name} max err {e} > {tol}")
-        n_flip = int((got.best_depth[act] != want.best_depth[act]).sum())
-        ms = time_ms(torch, lambda: sweep_pile_pixel(ep, DMIN, DMAX, D,
-                                                     s_hat, params, act,
-                                                     **kw))
-        nbytes = ep.numel() * 4 + int(act.sum()) * 4 + Vs * Us * (3 + Cs) * 4
-        if per_pixel:
-            nbytes += 2 * Vs * Us * 4
+        t_plain = time_ms(torch, lambda: out.setdefault("want", plain()),
+                          reps=1)
+        err, flips, same = check_same(tag, got, out.pop("want"), mask)
+        ms = time_ms(torch, lambda: run(None))
         bms, by = bound(nbytes, int(work) * flops_per_sample_step(Cs))
-        print(f"  sweep {tag}: max_abs_err {err:.3g} (tol {SWEEP_TOL}), "
-              f"{n_flip} depth picks differ, kernel {ms:.3f} ms, plain "
-              f"{t_plain:.1f} ms, bound {bms:.3f} ms by {by}, "
+        print(f"  {tag}: bitwise {same}, max_abs_err {err:.3g}, {flips} "
+              f"depth picks differ, {int(mask.sum())} px, kernel {ms:.3f} "
+              f"ms, plain {t_plain:.1f} ms, bound {bms:.3f} ms by {by}, "
               f"{int(work)} sample-steps")
         return dict(max_abs_err=err, ms=ms, plain_ms=t_plain, bound_ms=bms,
                     bound_by=by), got
 
+    def check_pixel(tag, ep, act, lo, hi, per_pixel):
+        Vs, Ss, Us, Cs = ep.shape
+        kw = dict(dmin_v_u=lo, dmax_v_u=hi) if per_pixel else {}
+        nbytes = (ep.numel() + int(act.sum()) + Vs * Us * (3 + Cs)
+                  + (2 * Vs * Us if per_pixel else 0)) * 4
+        return check_kernel(
+            f"sweep_pixel {tag}",
+            lambda w: sweep_pile_pixel(ep, DMIN, DMAX, D, s_hat, params, act,
+                                       work_count=w, **kw),
+            lambda: sweep_pile(ep, lo, hi, D, s_hat, params), act, nbytes,
+            Cs)
+
+    def check_rows(tag, ep, with_k):
+        Vs, Ss, Us, Cs = ep.shape
+        dvec = candidate_grid(DMIN, DMAX, D, dev)
+        nbytes = (ep.numel() + Vs * Us * (4 + Cs) + D
+                  + (Vs * Ss * Us if with_k else 0)) * 4
+        return check_kernel(
+            f"sweep_rows {tag}",
+            lambda w: sweep_pile_rows(ep, DMIN, DMAX, D, s_hat, params,
+                                      with_k_best=with_k, work_count=w),
+            lambda: sweep_rows_plain(ep, dvec, s_hat, params, with_k),
+            torch.ones((Vs, Us), dtype=torch.bool, device=dev), nbytes,
+            Cs)[0]
+
     full = lambda x: torch.full((V, U), x, dtype=torch.float32, device=dev)
-    rec, res = check_sweep("uniform C=1", epis, active, full(DMIN),
-                           full(DMAX), False)
-    records["sweep_pixel"] = rec
+    records["sweep_pixel"], res = check_pixel("uniform C=1", epis, active,
+                                              full(DMIN), full(DMAX), False)
     g = torch.Generator(device=dev).manual_seed(0)
     center = torch.rand((V, U), generator=g, device=dev) * 4.0 - 0.5
     lo = torch.clamp(center - 0.6, DMIN, DMAX).contiguous()
     hi = torch.clamp(center + 0.6, DMIN, DMAX).contiguous()
-    check_sweep("per-pixel C=1", epis, active, lo, hi, True)
+    check_pixel("per-pixel C=1", epis, active, lo, hi, True)
     rgb_gain = torch.tensor([1.0, 0.8, 0.6], device=dev)
     epis3 = (epis[:64] * rgb_gain).contiguous()
-    check_sweep("per-pixel C=3 (64 rows)", epis3, active[:64].contiguous(),
+    check_pixel("per-pixel C=3 (64 rows)", epis3, active[:64].contiguous(),
                 lo[:64].contiguous(), hi[:64].contiguous(), True)
+
+    # the row sweep: the pile's input (every row), then slabs
+    vol4, _ = synthetic_sequence(torch, dev, gains=BAND_GAINS)
+    epis4 = normalize_volume(vol4[:64].contiguous())
+    del vol4
+    records["sweep_rows"] = check_rows("pile input C=1 (all rows)", epis,
+                                       False)
+    check_rows("C=1 k_best (64 rows)", epis[:64].contiguous(), True)
+    check_rows("C=4 k_best (64 rows)", epis4, True)
 
     # merge as the pass does, then the median on the s_hat plane
     good = active & (res.best_score > params.raw_score_threshold)
@@ -263,6 +347,9 @@ def main() -> int:
     records["median"], filtered = check_median("C=1", depth, frame, mask)
     check_median("C=3 (64 rows)", depth[:64].contiguous(),
                  epis3[:, s_hat].contiguous(), mask[:64].contiguous())
+    frames4 = epis4.permute(1, 0, 2, 3).contiguous()
+    check_median("C=4 (64 rows)", depth[:64].contiguous(),
+                 frames4[s_hat].contiguous(), mask[:64].contiguous())
 
     # the paint on fresh copies of the pass state
     conf = (state.ce[s_hat] * torch.abs(res.best_score - res.score_mean))
@@ -272,87 +359,227 @@ def main() -> int:
     claim0 = state.claim.clone()
     claim0[s_hat] = active
 
-    def fresh():
-        return (claim0.clone(), torch.zeros((S, V, U), device=dev),
-                torch.zeros((S, V, U), device=dev))
+    def check_paint(tag, claim, fr, src, rb, m, cf):
+        Sp, Vp, Up, Cp = fr.shape
 
-    def paint(fn, cl, t0_, t1_):
-        return fn(cl, frames, filtered, rbar, mask, s_hat,
-                  params.slope_factor, params.propagation_epsilon,
-                  [(t0_, filtered), (t1_, conf)])
+        def fresh():
+            return (claim.clone(), torch.zeros((Sp, Vp, Up), device=dev),
+                    torch.zeros((Sp, Vp, Up), device=dev))
 
-    got = fresh()
-    paint(propagate_cuda, *got)
-    want = fresh()
-    plain_ms = time_ms(torch, lambda: paint(propagate, *want), reps=1)
-    same = all(torch.equal(a, b) for a, b in zip(got, want))
-    if not same:
-        failures.append("paint not bitwise equal")
-    painted = int((claim0 & ~got[0]).sum())
-    ms = time_ms(torch, lambda *a: paint(propagate_cuda, *a), reps=5,
-                 setup=fresh)
-    # claim read everywhere, colours read at unclaimed targets, claim and
-    # the two payloads written at painted ones, the source planes once
-    P, C = 2, 1
-    n_open = int(claim0.sum())
-    nbytes = S * V * U + n_open * 4 * C + painted * (1 + 4 * P) \
-        + V * U * (4 + 4 * C + 4 * P)
-    bms, by = bound(nbytes, n_open * (3 * C + 3))
-    err = max(float((a.float() - b.float()).abs().max())
-              for a, b in zip(got, want))
-    records["paint"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bms, bound_by=by)
-    print(f"  paint C=1: bitwise {same}, {painted} targets painted, kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bms:.3f} ms by {by}")
-    del comp, epis, frames, state, res, got, want, claim0, epis3
+        def paint(fn, cl, t0_, t1_):
+            return fn(cl, fr, src, rb, m, s_hat, params.slope_factor,
+                      params.propagation_epsilon, [(t0_, src), (t1_, cf)])
+
+        got = fresh()
+        paint(propagate_cuda, *got)
+        want = fresh()
+        plain_ms = time_ms(torch, lambda: paint(propagate, *want), reps=1)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        if not same:
+            failures.append(f"paint {tag} not bitwise equal")
+        painted = int((claim & ~got[0]).sum())
+        ms = time_ms(torch, lambda *a: paint(propagate_cuda, *a), reps=5,
+                     setup=fresh)
+        # claim read everywhere, colours read at unclaimed targets, claim
+        # and the two payloads written at painted ones, the source planes
+        # once
+        P = 2
+        n_open = int(claim.sum())
+        nbytes = Sp * Vp * Up + n_open * 4 * Cp + painted * (1 + 4 * P) \
+            + Vp * Up * (4 + 4 * Cp + 4 * P)
+        bms, by = bound(nbytes, n_open * (3 * Cp + 3))
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+        print(f"  paint {tag}: bitwise {same}, {painted} targets painted, "
+              f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+              f"{bms:.3f} ms by {by}")
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                    bound_by=by)
+
+    records["paint"] = check_paint("C=1", claim0, frames, filtered, rbar,
+                                   mask, conf)
+    check_paint("C=4 (64 rows)", claim0[:, :64].contiguous(), frames4,
+                filtered[:64].contiguous(), frames4[s_hat].contiguous(),
+                mask[:64].contiguous(), conf[:64].contiguous())
+    del comp, epis, frames, state, res, claim0, epis3, epis4, frames4
     torch.cuda.empty_cache()
     if failures:
         print("phase 2 FAILED: " + "; ".join(failures))
         return 1
     print("phase 2 ok: every kernel agrees with its plain version")
 
-    # ---- phase 3: the main path, counts reset just before ----
-    wrappers = {"sweep_pixel": sweep_pile_pixel,
+    # ---- phases 3-5: the main paths, counts reset just before each ----
+    wrappers = {"sweep_pixel": sweep_pile_pixel, "sweep_rows": sweep_pile_rows,
+                "sweep_tiles": sweep_pile_tiles,
                 "median": selective_median_cuda, "paint": propagate_cuda}
-    for w in wrappers.values():
-        w.launches = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    ftc = FineToCoarse(vol, DMIN, DMAX, D, params=params, device=dev)
-    ftc.run()
-    fused, validity = ftc.get_results()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in wrappers.items()}
-    levels = [(*c.epis.shape[:3], c.passes_run, round(t, 3))
-              for c, t in zip(ftc.computers, ftc.level_seconds)]
-    print(f"phase 3 pipeline: {wall:.2f}s wall, {len(levels)} levels "
-          f"(V, S, U, passes, s) {levels}, launches "
-          f"{launches}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-          f" GiB")
+    total = dict.fromkeys(wrappers, 0)
+
+    def run_path(tag, needs, fn):
+        """Run one main path; fail unless each kernel in ``needs``
+        launched.  Returns (result, wall seconds, launches)."""
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0_ = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ = time.perf_counter() - t0_
+        counts = {k: w.launches for k, w in wrappers.items()}
+        for k, n in counts.items():
+            total[k] += n
+        missing = [k for k in needs if counts[k] == 0]
+        if missing:
+            failures.append(f"{tag}: never launched {missing}")
+        return out, wall_, counts
+
+    def run_ftc(v):
+        f = FineToCoarse(v, DMIN, DMAX, D, params=params, device=dev)
+        f.run()
+        return (f, *f.get_results())
+
+    def edge_mask(v):
+        """The pre-run edge-confidence mask [S, V, U] of bench.py's gate."""
+        ce, _ = edge_confidence_volume(normalize_volume(v), params)
+        return (ce > params.edge_score_threshold).permute(1, 0, 2)
+
+    def quality(fused_, conf0):
+        """RMSE, P90 of |fused - gt| over conf0, and conf0's share."""
+        gt = torch.as_tensor(gt_s_u, device=dev)[:, None, :]
+        err_ = torch.abs(fused_ - gt)[conf0].double().cpu().numpy()
+        return (float(np.sqrt(np.mean(err_ ** 2))),
+                float(np.percentile(err_, 90)), float(conf0.float().mean()))
+
+    def level_line(f):
+        return [(*c.epis.shape[:3], c.passes_run, round(t, 3))
+                for c, t in zip(f.computers, f.level_seconds)]
+
+    (ftc, fused, validity), wall, launches = run_path(
+        "phase 3", ("sweep_pixel", "median", "paint"), lambda: run_ftc(vol))
+    print(f"phase 3 pipeline: {wall:.2f}s wall, {len(ftc.computers)} levels "
+          f"(V, S, U, passes, s) {level_line(ftc)}, launches {launches}, "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del ftc
-    fused = fused.cpu().numpy()
-    validity = validity.cpu().numpy()
-    ce, _ = edge_confidence_volume(normalize_volume(vol), params)
-    conf0 = (ce > params.edge_score_threshold).permute(1, 0, 2).cpu().numpy()
-    gt = np.broadcast_to(gt_s_u[:, None, :], fused.shape)
-    err = np.abs(fused - gt)[conf0]
-    rmse = float(np.sqrt(np.mean(err ** 2)))
-    p90 = float(np.percentile(err, 90))
+    mask1 = edge_mask(vol)
+    rmse, p90, edge_share = quality(fused, mask1)
     with open(os.path.join(HERE, "REF_ANCHOR.json")) as f:
         ref = json.load(f)[ANCHOR_KEY]
     ok_q = (rmse <= ref["rmse_px"] + MARGIN_PX
             and p90 <= ref["p90_px"] + MARGIN_PX)
-    ok_shape = fused.shape == (S, V, U) and bool(np.isfinite(fused).all())
+    ok_shape = (tuple(fused.shape) == (S, V, U)
+                and bool(torch.isfinite(fused).all()))
     print(f"phase 3 quality: RMSE {rmse:.4f} px (gate "
           f"{ref['rmse_px'] + MARGIN_PX:.4f}), P90 {p90:.4f} px (gate "
-          f"{ref['p90_px'] + MARGIN_PX:.4f}) on {conf0.mean() * 100:.1f}% "
-          f"edge px; coverage {validity.mean() * 100:.1f}%; finite "
-          f"{S}x{V}x{U}: {ok_shape}")
-    if not (ok_q and ok_shape and all(n > 0 for n in launches.values())):
-        print("phase 3 FAILED")
+          f"{ref['p90_px'] + MARGIN_PX:.4f}) on {edge_share * 100:.1f}% "
+          f"edge px; coverage {float(validity.float().mean()) * 100:.1f}%; "
+          f"finite {S}x{V}x{U}: {ok_shape}")
+    del fused, validity
+    if not (ok_q and ok_shape) or failures:
+        print("phase 3 FAILED: " + "; ".join(failures))
         return 1
+
+    # ---- phase 4: the pile on the bench scene and on data/strips16 ----
+    pile, wall, launches = run_path(
+        "phase 4", ("sweep_rows", "median"),
+        lambda: Depth1DComputerPile(vol, DMIN, DMAX, D, s_hat=s_hat,
+                                    params=params, device=dev).run())
+    gt_row = torch.as_tensor(gt_s_u[s_hat], device=dev)[None, :]
+    m = pile.edge_mask
+    err = torch.abs(pile.best_depth - gt_row)[m].double().cpu().numpy()
+    p50, p90 = np.percentile(err, [50, 90])
+    print(f"phase 4 pile: {wall:.3f}s wall (s_hat={s_hat}, {V}x{U} px, "
+          f"D={D}), launches {launches}, {float(m.float().mean()) * 100:.1f}"
+          f"% px kept, |depth - gt| P50 {p50:.4f} px, P90 {p90:.4f} px")
+    data = os.path.join(HERE, "data", "strips16")
+    layers = np.load(os.path.join(data, "ground_truth.npz"))[
+        "layer_disparities"]
+    small = Depth1DComputerPile(
+        build_epis_from_imgs(read_imgs_from_folder(data, "png")), -1.0, 1.5,
+        24, device=dev)
+    small.run()
+    d_s = small.get_depths().cpu().numpy()
+    m_s = small.result.edge_mask.cpu().numpy()
+    e_s = np.min(np.abs(d_s[m_s][:, None] - layers[None]), axis=1)
+    med_s, rmse_s = float(np.median(e_s)), float(np.sqrt(np.mean(e_s ** 2)))
+    ok_s = m_s.mean() > 0.3 and med_s < 0.1 and rmse_s < 0.3
+    print(f"phase 4 strips16: {m_s.mean() * 100:.1f}% px kept (> 30%), "
+          f"median error {med_s:.4f} px (< 0.1), RMSE {rmse_s:.4f} px "
+          f"(< 0.3): {'ok' if ok_s else 'FAILED'}")
+    del pile, small
+    if not ok_s or failures:
+        print("phase 4 FAILED: " + "; ".join(failures))
+        return 1
+
+    # ---- phase 5: the four-band pipeline ----
+    del vol
+    torch.cuda.empty_cache()
+    vol4, _ = synthetic_sequence(torch, dev, gains=BAND_GAINS)
+    (ftc4, fused4, _), wall, launches = run_path(
+        "phase 5", ("sweep_rows", "sweep_tiles", "median", "paint"),
+        lambda: run_ftc(vol4))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rmse4, p90_4, edge4 = quality(fused4, edge_mask(vol4))
+    rmse4_1, p90_4_1, _ = quality(fused4, mask1)
+    finite4 = (tuple(fused4.shape) == (S, V, U)
+               and bool(torch.isfinite(fused4).all()))
+    print(f"phase 5 four-band pipeline: {wall:.2f}s wall, "
+          f"{tuple(vol4.shape)}, levels (V, S, U, passes, s) "
+          f"{level_line(ftc4)}, launches {launches}, peak {peak:.2f} GiB")
+    gate_rmse = ref["rmse_px"] + MARGIN_PX
+    gate_p90 = ref["p90_px"] + MARGIN_PX
+    print(f"phase 5 quality: RMSE {rmse4:.4f} px, P90 {p90_4:.4f} px on "
+          f"its {edge4 * 100:.1f}% edge px; on phase 3's "
+          f"{edge_share * 100:.1f}% edge px RMSE {rmse4_1:.4f} px, P90 "
+          f"{p90_4_1:.4f} px (C=1 gate {gate_rmse:.4f} / {gate_p90:.4f}); "
+          f"finite {finite4}")
+    del mask1
+    del fused4
+    if not finite4 or failures:
+        print("phase 5 FAILED: " + "; ".join(failures))
+        return 1
+
+    # ---- phase 6: the tile sweep at level 1's first-pass inputs ----
+    c1, p1 = ftc4.computers[1], ftc4.level_params[1]
+    st1 = c1.initial_state()
+    sh = c1.epis.shape[1] // 2
+    act1 = (st1.ce_mask[sh] & st1.claim[sh]).contiguous()
+    lo1 = c1.dmin_s_v_u[sh].contiguous()
+    hi1 = c1.dmax_s_v_u[sh].contiguous()
+    qlo, qhi = tile_quantized_bounds(act1, lo1, hi1, (DMIN, DMAX))
+    del st1, ftc4
+    print(f"phase 6 inputs: level 1 of phase 5, {tuple(c1.epis.shape)}, "
+          f"s_hat={sh}, {int(act1.sum())} active px")
+
+    def check_tiles(tag, rows, glo, ghi, plo, phi, with_k):
+        ep = c1.epis[rows].contiguous()
+        act, glo, ghi = (x[rows].contiguous() for x in (act1, glo, ghi))
+        kw = {}
+        if plo is not None:
+            kw = dict(pdmin_v_u=plo[rows].contiguous(),
+                      pdmax_v_u=phi[rows].contiguous())
+        Vs, Ss, Us, Cs = ep.shape
+        nbytes = (ep.numel() + Vs * Us * (3 + Cs) + int(act.sum())
+                  + (2 + 2 * (plo is not None)) * Vs * Us
+                  + (Vs * Ss * Us if with_k else 0)) * 4
+        return check_kernel(
+            f"sweep_tiles {tag}",
+            lambda w: sweep_pile_tiles(ep, glo, ghi, D, sh, p1,
+                                       with_k_best=with_k, active_v_u=act,
+                                       work_count=w, **kw),
+            lambda: sweep_pile(ep, glo, ghi, D, sh, p1, with_k, **kw),
+            act, nbytes, Cs)[0]
+
+    every = slice(None)
+    records["sweep_tiles"] = check_tiles("tile mode C=4", every, qlo, qhi,
+                                         lo1, hi1, False)
+    check_tiles("pixel mode C=4", every, lo1, hi1, None, None, False)
+    check_tiles("tile mode C=4 k_best (64 rows)", slice(0, 64), qlo, qhi,
+                lo1, hi1, True)
+    if failures:
+        print("phase 6 FAILED: " + "; ".join(failures))
+        return 1
+    print(f"phase 6 ok: the tile sweep agrees with its plain version; "
+          f"script {time.perf_counter() - t_start:.1f}s so far")
 
     meta = {
         "sweep_pixel": ("remotesensingproject_tpu_torch/csrc/sweep_pixel.cu",
@@ -361,9 +588,14 @@ def main() -> int:
                    "remotesensingproject_tpu/ops/median_pallas.py:40"),
         "paint": ("remotesensingproject_tpu_torch/csrc/paint.cu",
                   "remotesensingproject_tpu/ops/propagation_pallas.py:57"),
+        "sweep_rows": ("remotesensingproject_tpu_torch/csrc/sweep_rows.cu",
+                       "remotesensingproject_tpu/ops/sweep_pallas.py:84"),
+        "sweep_tiles": (
+            "remotesensingproject_tpu_torch/csrc/sweep_tiles.cu",
+            "remotesensingproject_tpu/ops/sweep_pallas_perpixel.py:43"),
     }
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
-                    launches=launches[k], library_ms=None, **records[k])
+                    launches=total[k], library_ms=None, **records[k])
                for k, (src, rep) in meta.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)

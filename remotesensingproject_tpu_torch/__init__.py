@@ -2,8 +2,9 @@
 PyTorch and CUDA for an NVIDIA H100.
 
 A port of ``remotesensingproject_tpu`` (JAX on a TPU), which stays the
-reference.  Plain tensor code is PyTorch; the sweep, selective median and
-line-paint kernels are CUDA C++ (``csrc/``), built with nvcc at first use.
+reference.  Plain tensor code is PyTorch; the three sweeps (pixel, row and
+tile), the selective median and the line paint are CUDA C++ kernels
+(``csrc/``), built with nvcc at first use.
 Entry points run on CUDA unless the caller passes ``device="cpu"``, where
 the plain PyTorch version of every kernel runs instead.
 """
@@ -11,8 +12,10 @@ the plain PyTorch version of every kernel runs instead.
 from .config import DEFAULT_PARAMS, DEFAULT_PYRAMID, DepthParams, PyramidParams
 from .models.depth2d import Depth2DComputer
 from .models.fine_to_coarse import FineToCoarse
+from .models.pile import Depth1DComputerPile
 
 __version__ = "0.1.0"
 
 __all__ = ["DEFAULT_PARAMS", "DEFAULT_PYRAMID", "DepthParams",
-           "PyramidParams", "Depth2DComputer", "FineToCoarse"]
+           "PyramidParams", "Depth1DComputerPile", "Depth2DComputer",
+           "FineToCoarse"]

@@ -19,7 +19,9 @@
 // same element n // 2 for finite values, so the result equals the plain
 // version's odd-even network bit for bit.  The TPU kernel's 16-row VMEM
 // windows with lane padding are not needed: neighbouring threads share
-// the taps through the cache.
+// the taps through the cache.  Any channel count C is taken, as by the TPU
+// kernel: for C <= 3 the centre's colours sit in registers; beyond that
+// they are read again from global memory (L1) at each tap.
 
 #include "common.cuh"
 
@@ -28,6 +30,9 @@ namespace {
 constexpr int kMaxSize = 17;
 constexpr int kMaxTaps = kMaxSize * kMaxSize;
 
+// kFixedC > 0: the centre's colours held in registers (C <= kFixedC);
+// kFixedC == 0: any C, the centre's colours re-read at each tap.
+template <int kFixedC>
 __global__ void selective_median_kernel(
     const float* __restrict__ src, const unsigned char* __restrict__ mask,
     const float* __restrict__ frame, int V, int U, int C, int size,
@@ -41,8 +46,9 @@ __global__ void selective_median_kernel(
   const int v = (int)(i / U);
   const int u = (int)(i - (long long)v * U);
   const int w = (size - 1) / 2;
-  float fc[3] = {0.f, 0.f, 0.f};
-  for (int c = 0; c < C; ++c) fc[c] = frame[i * C + c];
+  float fc[kFixedC > 0 ? kFixedC : 1] = {};
+  if (kFixedC > 0)
+    for (int c = 0; c < C; ++c) fc[c] = frame[i * C + c];
 
   float vals[kMaxTaps];
   int n = 0;
@@ -56,7 +62,8 @@ __global__ void selective_median_kernel(
       if (!mask[j]) continue;
       float dsq = 0.f;
       for (int c = 0; c < C; ++c) {
-        const float diff = fc[c] - frame[j * C + c];
+        const float f0 = (kFixedC > 0) ? fc[c] : frame[i * C + c];
+        const float diff = f0 - frame[j * C + c];
         const float d2 = diff * diff;
         dsq = (c == 0) ? d2 : dsq + d2;
       }
@@ -87,7 +94,11 @@ RSLF_EXPORT int rslf_selective_median(const float* src,
   const int threads = 256;
   const long long n = (long long)V * U;
   const int blocks = (int)((n + threads - 1) / threads);
-  selective_median_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      src, mask, frame, V, U, C, size, eps, cs, out);
+  if (C <= 3)
+    selective_median_kernel<3><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        src, mask, frame, V, U, C, size, eps, cs, out);
+  else
+    selective_median_kernel<0><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        src, mask, frame, V, U, C, size, eps, cs, out);
   return (int)cudaGetLastError();
 }

@@ -25,12 +25,17 @@
 // version's first-writer-wins order, with no synchronisation, and the
 // result is bit for bit the same.  Claimed targets return at once, so late
 // passes cost little.  The TPU kernel's v-tiles, lane-aligned roll windows
-// and per-tile offset ranges are not needed.
+// and per-tile offset ranges are not needed.  Any channel count C is
+// taken, as by the TPU kernel: for C <= 3 the target's colours sit in
+// registers; beyond that they are read again at each candidate source.
 
 #include "common.cuh"
 
 namespace {
 
+// kFixedC > 0: the target's colours held in registers (C <= kFixedC);
+// kFixedC == 0: any C, the target's colours re-read at each source.
+template <int kFixedC>
 __global__ void paint_kernel(unsigned char* __restrict__ claim,
                              const float* __restrict__ frames,
                              const float* __restrict__ tag,
@@ -56,8 +61,9 @@ __global__ void paint_kernel(unsigned char* __restrict__ claim,
   const float c2 = rslf_round_half_away(range[1] * ds);
   const int o_lo = (int)fminf(c1, c2);
   const int o_hi = (int)fmaxf(c1, c2);
-  float fr[3] = {0.f, 0.f, 0.f};
-  for (int c = 0; c < C; ++c) fr[c] = frames[i * C + c];
+  float fr[kFixedC > 0 ? kFixedC : 1] = {};
+  if (kFixedC > 0)
+    for (int c = 0; c < C; ++c) fr[c] = frames[i * C + c];
 
   for (int o = o_hi; o >= o_lo; --o) {
     const int us = u - o;
@@ -68,7 +74,8 @@ __global__ void paint_kernel(unsigned char* __restrict__ claim,
     if (rslf_round_half_away(tg * ds) != (float)o) continue;
     float dsq = 0.f;
     for (int c = 0; c < C; ++c) {
-      const float diff = fr[c] - rbar[j * C + c];
+      const float f0 = (kFixedC > 0) ? fr[c] : frames[i * C + c];
+      const float diff = f0 - rbar[j * C + c];
       const float d2 = diff * diff;
       dsq = (c == 0) ? d2 : dsq + d2;
     }
@@ -96,8 +103,13 @@ RSLF_EXPORT int rslf_paint(unsigned char* claim, const float* frames,
   const int threads = 256;
   const long long n = (long long)S * V * U;
   const int blocks = (int)((n + threads - 1) / threads);
-  paint_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      claim, frames, tag, rbar, range, S, V, U, C, s_hat, cs, eps_sq, src0,
-      tgt0, src1, tgt1);
+  if (C <= 3)
+    paint_kernel<3><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        claim, frames, tag, rbar, range, S, V, U, C, s_hat, cs, eps_sq, src0,
+        tgt0, src1, tgt1);
+  else
+    paint_kernel<0><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        claim, frames, tag, rbar, range, S, V, U, C, s_hat, cs, eps_sq, src0,
+        tgt0, src1, tgt1);
   return (int)cudaGetLastError();
 }

@@ -10,8 +10,12 @@ rslf_depth_computation_core.hpp:901-1133):
   plane 0 when S is even, as in the reference), stopping early once no
   confident pixel is left unclaimed;
 * each pass: sweep of the still-unclaimed confident pixels of the s_hat
-  plane (CUDA kernel), merge, selective median (CUDA kernel), line
-  painting (CUDA kernel).  On the CPU the plain versions run instead.
+  plane, merge, selective median, line painting, each a CUDA kernel; on
+  the CPU the plain versions run instead.  The sweep is routed as the JAX
+  package routes it (its depth2d.py:334-431): the pixel kernel for C in
+  {1, 3} and D <= 1024, else the row kernel at uniform levels and the tile
+  kernel at bounds-edited ones, with grid bounds quantized per 128-lane
+  tile (``coarse_mode="tile"``) or each pixel's own (``"pixel"``).
 
 Reference quirks kept on purpose:
 * the median-filtered disparities drive propagation but are not written
@@ -41,7 +45,11 @@ from ..ops.edge_confidence import edge_confidence_volume
 from ..ops.median_pallas import selective_median_cuda
 from ..ops.normalize import normalize_volume
 from ..ops.propagation_pallas import propagate_cuda
-from ..ops.sweep_pallas_pixel import sweep_pile_pixel
+from ..ops.sweep import SweepResult
+from ..ops.sweep_pallas import sweep_pile_rows
+from ..ops.sweep_pallas_perpixel import sweep_pile_tiles, \
+    tile_quantized_bounds
+from ..ops.sweep_pallas_pixel import MAX_DIM_D, sweep_pile_pixel
 from ..types import DTYPE, f32, resolve_device
 
 
@@ -89,11 +97,42 @@ def center_outward_schedule(dim_s: int) -> list:
     return order
 
 
+COARSE_MODES = ("tile", "pixel")
+
+
+def sweep_pass(epis: torch.Tensor, active: torch.Tensor, s_hat: int,
+               dim_d: int, params: DepthParams, d_bounds: Tuple[float, float],
+               dmin_v_u: Optional[torch.Tensor] = None,
+               dmax_v_u: Optional[torch.Tensor] = None,
+               coarse_mode: str = "tile") -> SweepResult:
+    """The sweep of one pass over the ``active`` pixels, on the first
+    route that applies: the pixel kernel (C in {1, 3}, D <= 1024); the row
+    kernel at a uniform level (``dmin_v_u`` None); the tile kernel with
+    grid bounds shared per 128-lane tile and each pixel's range masked
+    (``"tile"``), or on each pixel's own grid (``"pixel"``)."""
+    C = epis.shape[-1]
+    if C in (1, 3) and dim_d <= MAX_DIM_D:
+        return sweep_pile_pixel(epis, d_bounds[0], d_bounds[1], dim_d,
+                                s_hat, params, active, dmin_v_u, dmax_v_u)
+    if dmin_v_u is None:
+        return sweep_pile_rows(epis, d_bounds[0], d_bounds[1], dim_d, s_hat,
+                               params, active_v_u=active)
+    if coarse_mode == "tile":
+        qmin, qmax = tile_quantized_bounds(active, dmin_v_u, dmax_v_u,
+                                           d_bounds)
+        return sweep_pile_tiles(epis, qmin, qmax, dim_d, s_hat, params,
+                                active_v_u=active, pdmin_v_u=dmin_v_u,
+                                pdmax_v_u=dmax_v_u)
+    return sweep_pile_tiles(epis, dmin_v_u, dmax_v_u, dim_d, s_hat, params,
+                            active_v_u=active)
+
+
 def _pass_fn(epis: torch.Tensor, frames: torch.Tensor, state: Depth2DState,
              s_hat: int, *, dim_d: int, params: DepthParams,
              d_bounds: Tuple[float, float],
              dmin_s_v_u: Optional[torch.Tensor] = None,
-             dmax_s_v_u: Optional[torch.Tensor] = None) -> Depth2DState:
+             dmax_s_v_u: Optional[torch.Tensor] = None,
+             coarse_mode: str = "tile") -> Depth2DState:
     """One center-outward pass (sweep + merge + median + propagation),
     updating ``state`` in place.  Per-pixel bounds are given at the
     bounds-edited levels and None at uniform ones."""
@@ -112,8 +151,8 @@ def _pass_fn(epis: torch.Tensor, frames: torch.Tensor, state: Depth2DState,
     if dmin_s_v_u is not None:
         dmin_v_u = dmin_s_v_u[s_hat].contiguous()
         dmax_v_u = dmax_s_v_u[s_hat].contiguous()
-    res = sweep_pile_pixel(epis, d_bounds[0], d_bounds[1], dim_d, s_hat,
-                           params, active, dmin_v_u, dmax_v_u)
+    res = sweep_pass(epis, active, s_hat, dim_d, params, d_bounds, dmin_v_u,
+                     dmax_v_u, coarse_mode)
 
     ok = res.best_score > params.raw_score_threshold
     good = active & ok
@@ -157,11 +196,17 @@ def _as_tensor(x, device: torch.device) -> torch.Tensor:
 class Depth2DComputer:
     """Driver mirroring Depth2DComputer's ctor / run / getters.
 
-    Runs on CUDA unless ``device`` names another device."""
+    Runs on CUDA unless ``device`` names another device.  ``coarse_mode``
+    picks the tile kernel's grids at bounds-edited levels (see
+    :func:`sweep_pass`); the pixel kernel's route ignores it."""
 
     def __init__(self, epis_v_s_u_c, dmin: float, dmax: float, dim_d: int,
                  epi_scale_factor: float = -1.0,
-                 params: DepthParams = DEFAULT_PARAMS, device=None):
+                 params: DepthParams = DEFAULT_PARAMS, device=None,
+                 coarse_mode: str = "tile"):
+        if coarse_mode not in COARSE_MODES:
+            raise ValueError(f"coarse_mode must be one of {COARSE_MODES}")
+        self.coarse_mode = coarse_mode
         self.device = resolve_device(device)
         epis = _as_tensor(epis_v_s_u_c, self.device)
         if epis.dim() == 3:
@@ -237,7 +282,7 @@ class Depth2DComputer:
         for s_hat in center_outward_schedule(S):
             _pass_fn(self.epis, frames, state, s_hat, dim_d=self.dim_d,
                      params=self.params, d_bounds=(self.dmin, self.dmax),
-                     **bounds)
+                     coarse_mode=self.coarse_mode, **bounds)
             self.passes_run += 1
             # a pass on a state with nothing left to claim is a no-op
             if not bool(torch.any(state.ce_mask & state.claim)):

@@ -30,13 +30,15 @@ from .depth2d import Depth2DComputer, _as_tensor
 
 
 class FineToCoarse:
-    """Runs on CUDA unless ``device`` names another device."""
+    """Runs on CUDA unless ``device`` names another device.
+    ``coarse_mode`` is handed to every level's Depth2DComputer."""
 
     def __init__(self, epis_v_s_u_c, dmin: float, dmax: float, dim_d: int,
                  epi_scale_factor: float = -1.0,
                  params: DepthParams = DEFAULT_PARAMS,
                  pyramid: PyramidParams = DEFAULT_PYRAMID,
-                 verbose: bool = False, device=None):
+                 verbose: bool = False, device=None,
+                 coarse_mode: str = "tile"):
         self.device = resolve_device(device)
         epis = _as_tensor(epis_v_s_u_c, self.device)
         if epis.dim() == 3:
@@ -67,7 +69,7 @@ class FineToCoarse:
             lvl_input = level.to(torch.uint8) if self.is_uint8 else level
             self.computers.append(Depth2DComputer(
                 lvl_input, dmin, dmax, dim_d, epi_scale_factor, lvl_params,
-                device=self.device))
+                device=self.device, coarse_mode=coarse_mode))
             self.level_params.append(lvl_params)
             level = downsample_epis(level)
             if self.is_uint8:

@@ -25,7 +25,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
-KERNELS = ("sweep_pixel", "median", "paint")
+KERNELS = ("sweep_pixel", "median", "paint", "sweep_rows", "sweep_tiles")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -49,7 +49,7 @@ def _nvcc() -> str:
 
 
 def _sources(name: str):
-    return [CSRC_DIR / f"{name}.cu", CSRC_DIR / "common.cuh"]
+    return [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]
 
 
 def library_path(name: str) -> Path:

@@ -57,6 +57,17 @@ def edge_confidence_volume(epis_v_s_u_c: torch.Tensor, params: DepthParams):
     return ce, mask
 
 
+def edge_confidence_frame(frame_v_u_c: torch.Tensor, params: DepthParams):
+    """C_e and mask of one frame (a fixed s over all (v, u)); each row v is
+    independent and the window runs along u (core.hpp:728-770).
+
+    Returns:
+      (ce, mask): ``[V, U]``.
+    """
+    ce, mask = edge_confidence_volume(frame_v_u_c[:, None], params)
+    return ce[:, 0], mask[:, 0]
+
+
 def _morph_open_vu(mask_v_s_u: torch.Tensor, size: int) -> torch.Tensor:
     """Morphological opening of the (v, u) mask planes, per s, with
     cv::getStructuringElement(MORPH_ELLIPSE) (core.hpp:759-769)."""

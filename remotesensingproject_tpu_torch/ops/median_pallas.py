@@ -41,8 +41,6 @@ def selective_median_cuda(src_v_u: torch.Tensor, frame_v_u_c: torch.Tensor,
         raise NotImplementedError(f"median window must be 1..{MAX_SIZE}")
     V, U = src_v_u.shape
     C = frame_v_u_c.shape[-1]
-    if C not in (1, 3):
-        raise NotImplementedError("the CUDA median supports C in (1, 3)")
     cuda_build.require("src", src_v_u, dev)
     cuda_build.require("frame", frame_v_u_c, dev)
     cuda_build.require("mask", mask_v_u, dev, torch.bool)

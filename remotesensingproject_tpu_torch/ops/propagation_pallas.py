@@ -45,8 +45,6 @@ def propagate_cuda(claim_s_v_u: torch.Tensor, frames_s_v_u_c: torch.Tensor,
     if len(payloads) != 2:
         raise NotImplementedError(
             "the CUDA paint carries two payloads (depth, disp_conf)")
-    if C not in (1, 3):
-        raise NotImplementedError("the CUDA paint supports C in (1, 3)")
     cuda_build.require("claim", claim_s_v_u, dev, torch.bool)
     cuda_build.require("frames", frames_s_v_u_c, dev)
     cuda_build.require("rbar", rbar_v_u_c, dev)

@@ -1,7 +1,9 @@
 """Dense slope sweep with mean-shift radiance scoring (plain PyTorch).
 
 Counterpart of ``remotesensingproject_tpu/ops/sweep.py`` (the XLA path)
-and the plain version of the CUDA sweep in ``sweep_pallas_pixel.py``.
+and the plain version of the CUDA pixel sweep (``sweep_pallas_pixel.py``)
+and of the CUDA tile sweep (``sweep_pallas_perpixel.py``, whose masked
+tile mode ``sweep_pile`` takes with ``pdmin_v_u`` / ``pdmax_v_u``).
 Reference: compute_1D_depth_epi, rslf_depth_computation_core.hpp:480-661.
 
 Every (v, u) is swept densely; callers merge results at active pixels.
@@ -24,7 +26,7 @@ the CUDA kernel uses, so that the two agree on the card.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -114,14 +116,21 @@ def _mean_shift(valpos, valraw, valid, rbar0, params: DepthParams):
 
 def sweep_pile(epis_v_s_u_c: torch.Tensor, dmin_v_u: torch.Tensor,
                dmax_v_u: torch.Tensor, dim_d: int, s_hat: int,
-               params: DepthParams, with_k_best: bool = False) -> SweepResult:
+               params: DepthParams, with_k_best: bool = False,
+               pdmin_v_u: Optional[torch.Tensor] = None,
+               pdmax_v_u: Optional[torch.Tensor] = None) -> SweepResult:
     """Dense sweep over all EPIs.
 
     Args:
       epis_v_s_u_c: ``[V, S, U, C]`` normalized volume.
-      dmin_v_u / dmax_v_u: ``[V, U]`` per-pixel disparity bounds.
+      dmin_v_u / dmax_v_u: ``[V, U]`` per-pixel grid bounds.
       dim_d: number of candidate disparities.
       s_hat: reference temporal line.
+      pdmin_v_u / pdmax_v_u: optional ``[V, U]`` allowed ranges (the
+        masked mode of the tile sweep, ``sweep_pallas_perpixel.py``): a
+        candidate outside [pdmin - step, pdmax + step], step = (dmax -
+        dmin) / (dim_d - 1), can neither win nor count in the mean, which
+        is then (sum * dim_d / max(n_allowed, 1)) / dim_d.
     """
     V, S, U, C = epis_v_s_u_c.shape
     dev = epis_v_s_u_c.device
@@ -139,6 +148,12 @@ def sweep_pile(epis_v_s_u_c: torch.Tensor, dmin_v_u: torch.Tensor,
     rbar_b = torch.zeros((V, U, C), dtype=DTYPE, device=dev)
     k_b = torch.zeros((V, S, U), dtype=DTYPE, device=dev)
     zero = torch.zeros((), dtype=DTYPE, device=dev)
+    masked = pdmin_v_u is not None
+    if masked:
+        tol = drange / den
+        pd_lo = pdmin_v_u - tol
+        pd_hi = pdmax_v_u + tol
+        n_allowed = torch.zeros((V, U), dtype=DTYPE, device=dev)
     for d in range(dim_d):
         delta = dmin_v_u + (drange * float(d)) / den
         valpos, valraw, valid = _radiances(
@@ -149,12 +164,20 @@ def sweep_pile(epis_v_s_u_c: torch.Tensor, dmin_v_u: torch.Tensor,
         score = torch.where(card > 0, score_num / card, zero)
 
         better = score > best_score
+        if masked:
+            allowed = (delta >= pd_lo) & (delta <= pd_hi)
+            better = better & allowed
+            score_sum = score_sum + torch.where(allowed, score, zero)
+            n_allowed = n_allowed + allowed.to(DTYPE)
+        else:
+            score_sum = score_sum + score
         best_score = torch.where(better, score, best_score)
         best_depth = torch.where(better, delta, best_depth)
         rbar_b = torch.where(better[..., None], rbar, rbar_b)
         if with_k_best:
             k_b = torch.where(better[:, None, :], k_last, k_b)
-        score_sum = score_sum + score
+    if masked:
+        score_sum = score_sum * float(dim_d) / torch.clamp_min(n_allowed, 1.0)
     return SweepResult(best_score=best_score,
                        score_mean=div(score_sum, float(dim_d)),
                        best_depth=best_depth, rbar=rbar_b, k_best=k_b)

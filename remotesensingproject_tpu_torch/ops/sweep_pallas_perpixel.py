@@ -1,0 +1,141 @@
+"""Per-pixel-bounds (tile) sweep: wrapper of the CUDA kernel
+``csrc/sweep_tiles.cu``.
+
+Counterpart of ``remotesensingproject_tpu/ops/sweep_pallas_perpixel.py``,
+whose Pallas kernel ``_sweep_pp_kernel`` the CUDA kernel replaces.  Each
+pixel sweeps its own grid ``[dmin_v_u, dmax_v_u]`` with per-pixel sample
+positions.  In the masked mode (``pdmin_v_u`` / ``pdmax_v_u`` given) a
+candidate outside the pixel's allowed range, widened by one grid step, can
+neither win nor count in the score mean: that is the tile-quantized coarse
+sweep, whose grid bounds :func:`tile_quantized_bounds` shares per 128-lane
+tile.  Any D and any C.
+
+On a CPU tensor the wrapper runs the plain version, ``ops.sweep.sweep_pile``
+(densely over every pixel); on a CUDA tensor it launches the kernel over
+the pixels it is told are active, or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from ..config import DepthParams
+from ..types import DTYPE, chan_scale, f32
+from . import cuda_build
+from .sweep import SweepResult, sweep_pile
+from .sweep_pallas import (CHUNK, activity_mask, block_threads,
+                           sweep_outputs)
+
+
+def tile_quantized_bounds(active_v_u: torch.Tensor, dmin_v_u: torch.Tensor,
+                          dmax_v_u: torch.Tensor,
+                          d_bounds: Tuple[float, float]):
+    """Grid bounds shared per 128-lane u-tile aligned at u = 0: the min of
+    the active pixels' ``dmin_v_u`` and the max of their ``dmax_v_u``, the
+    level's ctor bounds ``d_bounds`` where a tile has no active pixel
+    (``models/depth2d.py:405-414`` of the JAX package)."""
+    V, U = active_v_u.shape
+    n_tiles = -(-U // CHUNK)
+    pad = n_tiles * CHUNK - U
+    inf = torch.tensor(float("inf"), dtype=DTYPE, device=dmin_v_u.device)
+
+    def reduce(x, lowest):
+        fill = inf if lowest else -inf
+        xt = torch.where(active_v_u, x, fill)
+        xt = torch.nn.functional.pad(xt, (0, pad), value=float(fill))
+        xt = xt.reshape(V, n_tiles, CHUNK)
+        red = xt.amin(dim=2) if lowest else xt.amax(dim=2)
+        fallback = f32(d_bounds[0] if lowest else d_bounds[1])
+        red = torch.where(torch.isfinite(red), red,
+                          torch.full_like(red, fallback))
+        return red.repeat_interleave(CHUNK, dim=1)[:, :U].contiguous()
+
+    return reduce(dmin_v_u, True), reduce(dmax_v_u, False)
+
+
+def _tiles_fn():
+    lib = cuda_build.load("sweep_tiles")
+    fn = lib.rslf_sweep_tiles
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [P, I, I, I, P, I, P, P, P, P, I, I, F, F, I, I,
+                   P, P, P, P, P, P, P]
+    fn.restype = ctypes.c_int
+    smem = lib.rslf_sweep_tiles_smem_bytes
+    smem.argtypes = [I, I, I]
+    smem.restype = ctypes.c_longlong
+    return lib, fn, smem
+
+
+def sweep_pile_tiles(epis_v_s_u_c: torch.Tensor, dmin_v_u: torch.Tensor,
+                     dmax_v_u: torch.Tensor, dim_d: int, s_hat: int,
+                     params: DepthParams, with_k_best: bool = False,
+                     tile_active=None,
+                     active_v_u: Optional[torch.Tensor] = None,
+                     pdmin_v_u: Optional[torch.Tensor] = None,
+                     pdmax_v_u: Optional[torch.Tensor] = None,
+                     work_count: Optional[torch.Tensor] = None
+                     ) -> SweepResult:
+    """Per-pixel-bounds sweep of the active pixels.
+
+    Args:
+      epis_v_s_u_c: ``[V, S, U, C]`` normalized volume.
+      dmin_v_u / dmax_v_u: ``[V, U]`` per-pixel grid bounds.
+      tile_active: optional ``[V, ceil(U / 128)]`` flags, as the TPU
+        wrapper takes them.
+      active_v_u: optional ``[V, U]`` bool; only these pixels are swept.
+      pdmin_v_u / pdmax_v_u: optional ``[V, U]`` allowed ranges (the
+        masked mode).
+      work_count: optional int64 CUDA tensor of one element; the kernel
+        adds the valid samples times mean-shift steps it ran.
+
+    Returns:
+      SweepResult; on CUDA zeros at the pixels not swept.
+    """
+    if params.interpolation != "linear":
+        raise NotImplementedError("the tile sweep implements linear "
+                                  "interpolation only")
+    V, S, U, C = epis_v_s_u_c.shape
+    dev = epis_v_s_u_c.device
+    masked = pdmin_v_u is not None
+    if dev.type != "cuda":
+        return sweep_pile(epis_v_s_u_c, dmin_v_u, dmax_v_u, dim_d, s_hat,
+                          params, with_k_best, pdmin_v_u, pdmax_v_u)
+
+    if params.fast:
+        raise NotImplementedError("fast mode is not ported yet")
+    cuda_build.require("epis", epis_v_s_u_c, dev)
+    planes = [("dmin_v_u", dmin_v_u), ("dmax_v_u", dmax_v_u)]
+    if masked:
+        planes += [("pdmin_v_u", pdmin_v_u), ("pdmax_v_u", pdmax_v_u)]
+    for name, t in planes:
+        cuda_build.require(name, t, dev)
+    if work_count is not None:
+        cuda_build.require("work_count", work_count, dev, torch.int64)
+    out = sweep_outputs(V, S, U, C, with_k_best, dev)
+    mask = activity_mask(V, U, tile_active, active_v_u, dev)
+    act = torch.nonzero(mask.reshape(-1)).reshape(-1).to(torch.int32)
+    n_act = act.numel()
+    if n_act == 0:
+        return out
+
+    lib, fn, smem_bytes = _tiles_fn()
+    threads = block_threads(lambda t: smem_bytes(S, C, t), dev)
+    a_coef = f32(chan_scale(C) / (params.kernel_h * params.kernel_h))
+    p = cuda_build.ptr
+    err = fn(p(epis_v_s_u_c), S, U, C, p(act), n_act, p(dmin_v_u),
+             p(dmax_v_u), p(pdmin_v_u), p(pdmax_v_u), dim_d, int(s_hat),
+             f32(params.slope_factor), a_coef, params.mean_shift_max_iter,
+             threads, p(out.best_score), p(out.score_mean),
+             p(out.best_depth), p(out.rbar), p(out.k_best), p(work_count),
+             cuda_build.stream_ptr(dev))
+    cuda_build.check(err, lib, "rslf_sweep_tiles_error_string",
+                     "sweep_tiles")
+    sweep_pile_tiles.launches += 1
+    return out
+
+
+#: kernel launches since the count was last set to 0
+sweep_pile_tiles.launches = 0

@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch/CUDA port's pipeline goes, on one GPU.
 
-    python3 scripts/torch_pipeline_profile.py
+    python3 scripts/torch_pipeline_profile.py [--bands 4]
 
 Runs the fine-to-coarse pipeline on the bench scene of ``chip_smoke.py``
-once to warm up, then once under ``torch.profiler``.  Prints one JSON
-line: the profiled wall time, the device time summed per CUDA kernel
-(the three ports by name, PyTorch's own kernels grouped), the device busy
-share (summed kernel time over wall time; one stream, so kernels do not
-overlap) and the card's name and power limit.
+(``--bands 4``: its four-band version, phase 5 there) once to warm up,
+then once under ``torch.profiler``.  Prints one JSON line: the profiled
+wall time, the device time summed per CUDA kernel (the port's kernels by
+name, PyTorch's own kernels grouped), the device busy share (summed
+kernel time over wall time; one stream, so kernels do not overlap) and
+the card's name and power limit.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -23,12 +25,14 @@ sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
 
-from chip_smoke import DMAX, DMIN, D, card_line, synthetic_sequence  # noqa
+from chip_smoke import (BAND_GAINS, DMAX, DMIN, D, card_line,  # noqa
+                        synthetic_sequence)
 from remotesensingproject_tpu_torch.models.fine_to_coarse import \
     FineToCoarse  # noqa: E402
 from remotesensingproject_tpu_torch.ops import cuda_build  # noqa: E402
 
-PORTS = {"sweep_pixel_kernel": "sweep_pixel",
+PORTS = {"sweep_pixel_kernel": "sweep_pixel", "sweep_rows_kernel": "sweep_rows",
+         "sweep_tiles_kernel": "sweep_tiles",
          "selective_median_kernel": "median", "paint_kernel": "paint"}
 
 
@@ -41,11 +45,15 @@ def run(vol):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--bands", type=int, choices=(1, 4), default=1)
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
     cuda_build.build()
-    vol, _ = synthetic_sequence(torch, torch.device("cuda"))
+    vol, _ = synthetic_sequence(torch, torch.device("cuda"),
+                                gains=BAND_GAINS if args.bands == 4 else None)
     run(vol)  # warm-up: allocator, library loads
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -69,6 +77,7 @@ def main() -> int:
     busy_ms = sum(by_kernel.values()) + sum(other.values())
     print(json.dumps({
         "card": card_line(),
+        "bands": args.bands,
         "wall_s": wall,
         "level_seconds": ftc.level_seconds,
         "passes": [c.passes_run for c in ftc.computers],

@@ -3,8 +3,8 @@
 CUDA kernels have no CPU mode, so these tests skip without a card; on a
 machine with an H100 (and no JAX) run them with
 ``python -m pytest tests/test_torch_cuda.py --noconftest -q``.
-Median and paint must be bitwise equal; the sweep uses the tolerances of
-tests/test_torch_sweep.py."""
+Median, paint and the row and tile sweeps must be bitwise equal; the
+pixel sweep uses the tolerances of tests/test_torch_sweep.py."""
 
 import numpy as np
 import pytest
@@ -20,6 +20,10 @@ from remotesensingproject_tpu_torch.ops.propagation import propagate
 from remotesensingproject_tpu_torch.ops.propagation_pallas import (
     propagate_cuda)
 from remotesensingproject_tpu_torch.ops.sweep import sweep_pile
+from remotesensingproject_tpu_torch.ops.sweep_pallas import (
+    candidate_grid, sweep_pile_rows, sweep_rows_plain)
+from remotesensingproject_tpu_torch.ops.sweep_pallas_perpixel import (
+    sweep_pile_tiles, tile_quantized_bounds)
 from remotesensingproject_tpu_torch.ops.sweep_pallas_pixel import (
     sweep_pile_pixel)
 
@@ -36,9 +40,63 @@ def dev():
 
 
 def _vol(C, S=12, V=16, U=96, seed=0):
-    vol, _ = oracle.make_synthetic_lf(S=S, V=V, U=U, C=C, seed=seed,
+    vol, _ = oracle.make_synthetic_lf(S=S, V=V, U=U, C=min(C, 3), seed=seed,
                                       dmin=-1.0, dmax=1.5)
-    return torch.from_numpy(vol / vol.max())
+    vol = vol / vol.max()
+    if C > 3:  # more bands: fixed gains on one channel
+        vol = vol[..., :1] * np.linspace(1.0, 0.5, C).astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(vol))
+
+
+def _same_sweep(got, want, m, with_k):
+    for name in ("best_score", "score_mean", "best_depth", "rbar"):
+        assert torch.equal(getattr(got, name)[m], getattr(want, name)[m]), \
+            name
+    if with_k:
+        assert torch.equal(got.k_best.permute(0, 2, 1)[m],
+                           want.k_best.permute(0, 2, 1)[m])
+
+
+@pytest.mark.parametrize("C,with_k,D", [(1, False, 24), (1, True, 24),
+                                        (4, True, 24), (1, False, 1030),
+                                        (6, True, 9)])
+def test_rows_kernel_bitwise(dev, C, with_k, D):
+    epis = _vol(C).to(dev)
+    V, S, U, _ = epis.shape
+    g = torch.Generator().manual_seed(C + D)
+    active = (torch.rand((V, U), generator=g) < 0.5).to(dev)
+    n0 = sweep_pile_rows.launches
+    got = sweep_pile_rows(epis, -1.0, 1.5, D, S // 2, DepthParams(),
+                          with_k_best=with_k, active_v_u=active)
+    assert sweep_pile_rows.launches == n0 + 1
+    want = sweep_rows_plain(epis, candidate_grid(-1.0, 1.5, D, dev), S // 2,
+                            DepthParams(), with_k_best=with_k)
+    _same_sweep(got, want, active, with_k)
+
+
+@pytest.mark.parametrize("C,masked,with_k", [(1, False, True), (1, True, False),
+                                             (4, True, True), (4, False, False),
+                                             (6, True, True)])
+def test_tiles_kernel_bitwise(dev, C, masked, with_k):
+    epis = _vol(C).to(dev)
+    V, S, U, _ = epis.shape
+    g = torch.Generator().manual_seed(10 + C)
+    active = (torch.rand((V, U), generator=g) < 0.6).to(dev)
+    c = torch.rand((V, U), generator=g).to(dev) * 1.7 - 0.6
+    lo = torch.clamp(c - 0.4, -1.0, 1.5).contiguous()
+    hi = torch.clamp(c + 0.4, -1.0, 1.5).contiguous()
+    kw = {}
+    if masked:
+        qlo, qhi = tile_quantized_bounds(active, lo, hi, (-1.0, 1.5))
+        kw = dict(pdmin_v_u=lo, pdmax_v_u=hi)
+        lo, hi = qlo, qhi
+    n0 = sweep_pile_tiles.launches
+    got = sweep_pile_tiles(epis, lo, hi, 24, S // 2, DepthParams(),
+                           with_k_best=with_k, active_v_u=active, **kw)
+    assert sweep_pile_tiles.launches == n0 + 1
+    want = sweep_pile(epis, lo, hi, 24, S // 2, DepthParams(),
+                      with_k_best=with_k, **kw)
+    _same_sweep(got, want, active, with_k)
 
 
 @pytest.mark.parametrize("C,per_pixel,D", [(1, False, 24), (1, True, 24),
@@ -65,7 +123,7 @@ def test_sweep_kernel_matches_plain(dev, C, per_pixel, D):
                                    getattr(want, name)[m], rtol=0, atol=atol)
 
 
-@pytest.mark.parametrize("C", [1, 3])
+@pytest.mark.parametrize("C", [1, 3, 4, 6])
 def test_median_kernel_bitwise(dev, C):
     g = torch.Generator().manual_seed(C)
     src = (torch.randint(-8, 17, (40, 70), generator=g) / 8.0).to(dev)
@@ -75,7 +133,7 @@ def test_median_kernel_bitwise(dev, C):
     assert torch.equal(got, selective_median(src, frame, mask, 5, 0.1))
 
 
-@pytest.mark.parametrize("C", [1, 3])
+@pytest.mark.parametrize("C", [1, 3, 4, 6])
 def test_paint_kernel_bitwise(dev, C):
     g = torch.Generator().manual_seed(10 + C)
     S, V, U = 9, 12, 80

@@ -25,7 +25,8 @@ def _inputs(seed, V, U, C):
 
 
 @pytest.mark.parametrize("C,size,eps", [(1, 5, 0.1), (3, 5, 0.1),
-                                        (1, 3, 0.05), (1, 7, 0.2)])
+                                        (4, 5, 0.1), (1, 3, 0.05),
+                                        (1, 7, 0.2)])
 def test_selective_median_bitwise(C, size, eps):
     src, frame, mask = _inputs(C + size, 13, 37, C)
     want = np.asarray(j_med(jnp.asarray(src), jnp.asarray(frame),
@@ -39,7 +40,7 @@ def test_selective_median_bitwise(C, size, eps):
     np.testing.assert_array_equal(via_wrapper, want)
 
 
-@pytest.mark.parametrize("C", [1, 3])
+@pytest.mark.parametrize("C", [1, 3, 4])
 def test_selective_median_matches_pallas_interpret(C):
     src, frame, mask = _inputs(20 + C, 21, 40, C)
     want = np.asarray(selective_median_pallas(

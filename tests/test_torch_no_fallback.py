@@ -13,6 +13,7 @@ import oracle
 from remotesensingproject_tpu_torch.cli import main as cli
 from remotesensingproject_tpu_torch.models.depth2d import Depth2DComputer
 from remotesensingproject_tpu_torch.models.fine_to_coarse import FineToCoarse
+from remotesensingproject_tpu_torch.models.pile import Depth1DComputerPile
 from remotesensingproject_tpu_torch.types import resolve_device
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / \
@@ -24,7 +25,7 @@ FORBIDDEN = re.compile(
 
 def test_sources_import_no_jax_and_no_jax_package():
     files = sorted(PKG.rglob("*.py"))
-    assert len(files) >= 15
+    assert len(files) >= 18
     for f in files:
         assert not FORBIDDEN.search(f.read_text()), f
 
@@ -58,6 +59,18 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["fine-to-coarse", str(tmp_path / "frames"), "--ext",
                   "png", "--out", str(tmp_path / "out")])
+
+
+@pytest.mark.parametrize("command", ["pile", "depth2d"])
+def test_pile_and_depth2d_raise_without_cuda(no_cuda, tmp_path, command):
+    vol, _ = oracle.make_synthetic_lf(S=4, V=12, U=24, C=1, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Depth1DComputerPile(vol, -1.0, 1.5, 5)
+    _write_frames(vol, tmp_path / "frames")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main([command, str(tmp_path / "frames"), "--ext", "png",
+                  "--out", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
 
 
 def _write_frames(vol, folder):

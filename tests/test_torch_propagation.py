@@ -46,7 +46,8 @@ def _check(got, want):
 
 @pytest.mark.parametrize("seed,s_hat,slope,C,buckets",
                          [(0, 3, 1.0, 1, False), (1, 0, 1.0, 1, True),
-                          (2, 6, 0.5, 3, False), (3, 3, 2.0, 1, True)])
+                          (2, 6, 0.5, 3, False), (3, 3, 2.0, 1, True),
+                          (4, 2, 1.0, 4, False)])
 def test_propagate_bitwise_vs_xla(seed, s_hat, slope, C, buckets):
     dim_d = 11
     inp = _inputs(seed, C=C, dim_d=dim_d)
@@ -64,7 +65,7 @@ def test_propagate_bitwise_vs_xla(seed, s_hat, slope, C, buckets):
     _check(_run_port(propagate_cuda, inp, s_hat, slope, 0.1), (cl, d, c))
 
 
-@pytest.mark.parametrize("seed,C", [(5, 1), (6, 3)])
+@pytest.mark.parametrize("seed,C", [(5, 1), (6, 3), (7, 4)])
 def test_propagate_bitwise_vs_pallas_interpret(seed, C):
     inp = _inputs(seed, C=C)
     claim, frames, depth, rbar, sm, conf, tgt_d, tgt_c = inp
