@@ -6,7 +6,9 @@
 Phases, one line each (details on further lines):
 
 1. the card's name and power limit; build of every CUDA kernel from
-   ``remotesensingproject_tpu_torch/csrc`` (one nvcc each, in parallel);
+   ``remotesensingproject_tpu_torch/csrc`` (one nvcc each, in parallel),
+   with the registers nvcc reports and the block size, shared memory and
+   resident blocks the pixel and tile sweeps' launcher chose;
 2. each kernel against its plain PyTorch version on the card, at the
    inputs of the first level-0 pass of the bench scene (SkysatLR18 [120]:
    S=100, V=540, U=960, D=120, d in [-1, 4]), plus per-pixel bounds and
@@ -30,7 +32,8 @@ Phases, one line each (details on further lines):
    fused map must be finite;
 6. the tile sweep against its plain version, in the tile and the pixel
    mode, at the first-pass inputs of level 1 of phase 5's pyramid (k_best
-   on a 64-row slab), bitwise;
+   on a 64-row slab), and in the tile mode at those of level 4 (a coarse
+   level of a few thousand pixels), bitwise;
 7. a ``{"kernels": [...]}`` JSON line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -179,6 +182,8 @@ def main() -> int:
         from remotesensingproject_tpu_torch.ops.sweep import sweep_pile
         from remotesensingproject_tpu_torch.ops.sweep_pallas import (
             candidate_grid, sweep_pile_rows, sweep_rows_plain)
+        from remotesensingproject_tpu_torch.ops import (sweep_pallas_perpixel,
+                                                        sweep_pallas_pixel)
         from remotesensingproject_tpu_torch.ops.sweep_pallas_perpixel import (
             sweep_pile_tiles, tile_quantized_bounds)
         from remotesensingproject_tpu_torch.ops.sweep_pallas_pixel import (
@@ -214,6 +219,10 @@ def main() -> int:
     for name in cuda_build.KERNELS:
         for fn, ln in ptxas_summary(cuda_build.build_log(name) or ""):
             print(f"  ptxas {name} {fn}: {ln}")
+    print(f"  launch plan sweep_pixel S={S} C=1: "
+          f"{sweep_pallas_pixel.launch_plan(S, 1)}")
+    print(f"  launch plan sweep_tiles S={S} C=4: "
+          f"{sweep_pallas_perpixel.launch_plan(S, 4)}")
 
     # ---- phase 2: kernels vs plain versions at level-0 pass-1 inputs ----
     params = DEFAULT_PARAMS
@@ -538,43 +547,53 @@ def main() -> int:
         print("phase 5 FAILED: " + "; ".join(failures))
         return 1
 
-    # ---- phase 6: the tile sweep at level 1's first-pass inputs ----
-    c1, p1 = ftc4.computers[1], ftc4.level_params[1]
-    st1 = c1.initial_state()
-    sh = c1.epis.shape[1] // 2
-    act1 = (st1.ce_mask[sh] & st1.claim[sh]).contiguous()
-    lo1 = c1.dmin_s_v_u[sh].contiguous()
-    hi1 = c1.dmax_s_v_u[sh].contiguous()
-    qlo, qhi = tile_quantized_bounds(act1, lo1, hi1, (DMIN, DMAX))
-    del st1, ftc4
-    print(f"phase 6 inputs: level 1 of phase 5, {tuple(c1.epis.shape)}, "
-          f"s_hat={sh}, {int(act1.sum())} active px")
+    # ---- phase 6: the tile sweep at first-pass inputs of levels 1 and 4 ----
+    def level_inputs(lvl):
+        """First-pass inputs of level ``lvl`` of phase 5's pyramid: its
+        computer, params, s_hat, active pixels, per-pixel ranges and the
+        tile-quantized grid bounds."""
+        c, p = ftc4.computers[lvl], ftc4.level_params[lvl]
+        st = c.initial_state()
+        sh_ = c.epis.shape[1] // 2
+        act_ = (st.ce_mask[sh_] & st.claim[sh_]).contiguous()
+        lo_ = c.dmin_s_v_u[sh_].contiguous()
+        hi_ = c.dmax_s_v_u[sh_].contiguous()
+        print(f"phase 6 inputs: level {lvl} of phase 5, "
+              f"{tuple(c.epis.shape)}, s_hat={sh_}, {int(act_.sum())} "
+              f"active px")
+        return (c, p, sh_, act_, lo_, hi_,
+                *tile_quantized_bounds(act_, lo_, hi_, (DMIN, DMAX)))
 
-    def check_tiles(tag, rows, glo, ghi, plo, phi, with_k):
-        ep = c1.epis[rows].contiguous()
-        act, glo, ghi = (x[rows].contiguous() for x in (act1, glo, ghi))
+    def check_tiles(tag, level, rows, tile_mode, with_k):
+        c, p, sh, act, lo, hi, qlo, qhi = level
+        ep = c.epis[rows].contiguous()
+        glo, ghi = (qlo, qhi) if tile_mode else (lo, hi)
+        act, glo, ghi = (x[rows].contiguous() for x in (act, glo, ghi))
         kw = {}
-        if plo is not None:
-            kw = dict(pdmin_v_u=plo[rows].contiguous(),
-                      pdmax_v_u=phi[rows].contiguous())
+        if tile_mode:
+            kw = dict(pdmin_v_u=lo[rows].contiguous(),
+                      pdmax_v_u=hi[rows].contiguous())
         Vs, Ss, Us, Cs = ep.shape
         nbytes = (ep.numel() + Vs * Us * (3 + Cs) + int(act.sum())
-                  + (2 + 2 * (plo is not None)) * Vs * Us
+                  + (2 + 2 * tile_mode) * Vs * Us
                   + (Vs * Ss * Us if with_k else 0)) * 4
         return check_kernel(
             f"sweep_tiles {tag}",
-            lambda w: sweep_pile_tiles(ep, glo, ghi, D, sh, p1,
+            lambda w: sweep_pile_tiles(ep, glo, ghi, D, sh, p,
                                        with_k_best=with_k, active_v_u=act,
                                        work_count=w, **kw),
-            lambda: sweep_pile(ep, glo, ghi, D, sh, p1, with_k, **kw),
+            lambda: sweep_pile(ep, glo, ghi, D, sh, p, with_k, **kw),
             act, nbytes, Cs)[0]
 
     every = slice(None)
-    records["sweep_tiles"] = check_tiles("tile mode C=4", every, qlo, qhi,
-                                         lo1, hi1, False)
-    check_tiles("pixel mode C=4", every, lo1, hi1, None, None, False)
-    check_tiles("tile mode C=4 k_best (64 rows)", slice(0, 64), qlo, qhi,
-                lo1, hi1, True)
+    level1, level4 = level_inputs(1), level_inputs(4)
+    del ftc4
+    records["sweep_tiles"] = check_tiles("tile mode C=4", level1, every,
+                                         True, False)
+    check_tiles("pixel mode C=4", level1, every, False, False)
+    check_tiles("tile mode C=4 k_best (64 rows)", level1, slice(0, 64), True,
+                True)
+    check_tiles("tile mode C=4 (level 4)", level4, every, True, False)
     if failures:
         print("phase 6 FAILED: " + "; ".join(failures))
         return 1

@@ -1,0 +1,791 @@
+// The (pixel, candidate) core of the pixel sweep (sweep_pixel.cu) and the
+// tile sweep (sweep_tiles.cu).
+//
+// What it computes, per pixel (v, u) of a compacted list: for each candidate
+// delta = lo + (d * rng) / (D - 1) of the pixel's grid [lo, lo + rng] (the
+// level's uniform bounds or the pixel's own), the S samples at
+// I = u + ((s_hat - s) * delta) * slope, (1 - t) * row[floor(I)] + t *
+// row[ceil(I)], valid iff floor(I) >= 0 and ceil(I) <= U - 1; the truncated
+// mean shift from the pixel's s_hat colour; the score sum_s K / card_R with
+// the kernel values of the last step; over the candidates the first-max
+// argmax and the score sum in candidate order; optionally k_best, the
+// winner's kernel values.  In the masked mode (allowed ranges given) a
+// candidate outside [pmin - step, pmax + step], step = rng / (D - 1), can
+// neither win nor count in the mean, which is (sum * D / max(n_allowed, 1))
+// / D.  Every sum over s is sequential from s = 0 and every comparison is
+// the plain version's (ops/sweep.py `sweep_pile`), so the result is its
+// result bit for bit (with -fmad=false and IEEE division).
+//
+// Bound on this card: fp32 CUDA-core arithmetic that cannot fuse (valid
+// samples x mean-shift steps x (4C + 5) operations); the mean shift is a
+// nonlinear weight inside a loop on its own last result, so the tensor
+// cores have no part.  What limits the layout is shared memory: a thread
+// keeps the S x C samples of its item staged across the mean-shift steps
+// (400 bytes at S = 100, C = 1; 1,600 at C = 4), so an SM holds some 500
+// threads at C = 1 and some 130 at C = 4, and the inner loop must find its
+// parallelism inside a thread.
+//
+// Design.  A thread owns one (pixel, candidate) item at a time.  A block
+// takes a group of G consecutive entries of the pixel list; their G x D
+// (pixel, candidate) slots are walked in order in windows: each window
+// evaluates the allowed flag of the next slots and compacts the allowed ones
+// into a list in shared memory (warp ballots and a prefix over the warps),
+// until the list holds `ncap` items or the group ends.  Warps then draw 32
+// neighbouring items at a time from the list (neighbouring candidates of one
+// pixel: their sample runs, their mean-shift lengths and their addresses are
+// alike).  An item's thread
+//   * stages its samples in its own column of shared memory, in batches:
+//     the positions of a batch, then all its loads (through the read-only
+//     path, branch-free; the ceil column is read only where it differs from
+//     the floor column), then the interpolation, so that many loads are in
+//     flight; it notes the run [s_a, s_b] of valid samples: the position is
+//     monotone in s, so the valid samples are one run;
+//   * runs the mean shift over that run only, with no validity test, each
+//     staged word read once a step, in batches of 8 samples whose K are
+//     independent while the adds to the sums keep their order; a fixed
+//     point of r_bar ends it, since later steps repeat the last one;
+//   * leaves its score and r_bar in the item's slot of shared memory.
+// For C = 1, 2 and 4 a column is packed into 16-byte slots laid
+// [slot][thread], so a batch is a few conflict-free 16-byte accesses; for
+// other C it is laid [word][thread].  Each C <= 4 has its own instantiation
+// with the channel vectors in registers and no test in a channel loop; any
+// other C keeps them in shared memory.
+// After a window one thread per pixel folds its pixel's items, in candidate
+// order, into the pixel's running best, score sum and allowed count, so a
+// pixel may span windows and D is not limited.  At the end of the group the
+// same threads write the outputs, and, if k_best is asked for, all threads
+// recompute the winner's samples, one (pixel, s) each, and its kernel values
+// from the r_bar its last step started with.
+//
+// The launcher chooses the block size from the occupancy the runtime
+// reports for this build (the most resident threads an SM holds), once per
+// kernel and size, and G from the number of pixels and resident blocks.
+#pragma once
+
+#include <initializer_list>
+#include <mutex>
+
+#include "sweep_ms.cuh"
+
+// Internal linkage: the pixel and the tile sweep are two libraries that
+// both hold this core, and each must launch and configure its own copy.
+namespace {
+
+// Inputs, outputs and constants of one launch.
+struct PcArgs {
+  const float* epis;  // [V, S, U, C]
+  int S, U, C;
+  const int* act;     // [n_act] flat pixel indices v * U + u
+  int n_act;
+  const float* bmin;  // [V, U] grid bounds, or null for the uniform ones
+  const float* bmax;
+  float dmin, dmax;   // the uniform grid bounds
+  const float* pmin;  // [V, U] allowed ranges (the masked mode), or null
+  const float* pmax;
+  int D, s_hat;
+  float slope, a_coef;
+  int iters;
+  int G;              // pixels of a group
+  int ncap;           // items of a window's list
+  SweepOut out;
+};
+
+// The most pixels a group may hold.  In the masked mode a pixel has few
+// items, and a larger group fills the windows' lists better.
+#define RSLF_PC_GMAX(masked) ((masked) ? 64 : 16)
+
+// Items of a window's list for each thread of the block.
+#define RSLF_PC_WINDOW 4
+
+// Words of one thread's column of staged samples (see PcCol): whole
+// 16-byte slots where the column is packed.
+__host__ __device__ inline int rslf_pc_col_words(int S, int C, int maxc) {
+  const bool packed = maxc == 1 || maxc == 2 || maxc == 4;
+  return packed ? (S * C + 3) / 4 * 4 : S * C;
+}
+
+// Offsets (in 4-byte words) of a block's shared memory.
+struct PcLayout {
+  int chan, list, score, irb, irbp, px, prb, prbp, misc, total;
+};
+
+// Per-pixel state planes of G words each: pix, lo, rng, plo, phi, best,
+// sum, best_d, n_allowed.
+#define RSLF_PC_PX_PLANES 9
+
+__host__ __device__ inline PcLayout rslf_pc_layout(int S, int C, int T,
+                                                   int maxc, int ncap, int G,
+                                                   bool with_k) {
+  PcLayout l;
+  l.chan = rslf_pc_col_words(S, C, maxc) * T;
+  l.list = l.chan + (maxc == 0 ? 3 * C * T : 0);
+  l.score = l.list + ncap;
+  l.irb = l.score + ncap;
+  l.irbp = l.irb + ncap * C;
+  l.px = l.irbp + (with_k ? ncap * C : 0);
+  l.prb = l.px + RSLF_PC_PX_PLANES * G;
+  l.prbp = l.prb + G * C;
+  l.misc = l.prbp + (with_k ? G * C : 0);
+  l.total = l.misc + 32 + 4;  // warp counts, the draw counter
+  return l;
+}
+
+// Position of a sample at `ds` = s_hat - s rows from the reference row:
+// weight t, column i0 = floor(I) (0 where the sample is invalid), up = the
+// sample also reads column i0 + 1 = ceil(I), ok = valid.  With
+// ceil(I) = floor(I) + (I > floor(I)), floor(I) >= 0 is I >= 0 and
+// ceil(I) <= U - 1 is I <= U - 1, exactly.
+struct PcPos {
+  float t;
+  int i0;
+  bool up, ok;
+};
+
+__device__ __forceinline__ PcPos rslf_pc_pos(float ds, int u, int U,
+                                             float delta, float slope) {
+  const float idx = (float)u + (ds * delta) * slope;
+  const float fi = floorf(idx);
+  PcPos p;
+  p.t = idx - fi;
+  p.ok = (idx >= 0.f) && (idx <= (float)(U - 1));
+  p.up = p.ok && (p.t > 0.f);
+  p.i0 = p.ok ? (int)fi : 0;
+  return p;
+}
+
+// A thread's column of staged samples.  For C = 1, 2 and 4 the words
+// s * C + c of a column are packed four to a 16-byte slot, slot q of thread
+// tid at word (q * T + tid) * 4, so that a warp reads or writes whole slots
+// without bank conflicts and a batch of samples is a few 16-byte accesses.
+// For other C word i of thread tid sits at i * T + tid.
+template <int NC>
+struct PcCol {
+  static constexpr bool kPacked = NC == 1 || NC == 2 || NC == 4;
+  float* base;  // the thread's first word
+  int T;
+  __device__ __forceinline__ PcCol(float* smem, int tid, int threads)
+      : base(smem + (kPacked ? 4 * tid : tid)), T(threads) {}
+  __device__ __forceinline__ float& word(int i) const {
+    return kPacked ? base[(i >> 2) * 4 * T + (i & 3)] : base[i * T];
+  }
+  // words i .. i + N - 1 (packed: i and N multiples of 4)
+  template <int N>
+  __device__ __forceinline__ void load(int i, float (&x)[N]) const {
+    if constexpr (kPacked && N % 4 == 0) {
+#pragma unroll
+      for (int q = 0; q < N / 4; ++q) {
+        const float4 f =
+            *reinterpret_cast<const float4*>(base + ((i >> 2) + q) * 4 * T);
+        x[4 * q] = f.x, x[4 * q + 1] = f.y, x[4 * q + 2] = f.z,
+               x[4 * q + 3] = f.w;
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < N; ++n) x[n] = word(i + n);
+    }
+  }
+  template <int N>
+  __device__ __forceinline__ void store(int i, const float (&x)[N]) const {
+    if constexpr (kPacked && N % 4 == 0) {
+#pragma unroll
+      for (int q = 0; q < N / 4; ++q)
+        *reinterpret_cast<float4*>(base + ((i >> 2) + q) * 4 * T) =
+            make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
+    } else {
+#pragma unroll
+      for (int n = 0; n < N; ++n) word(i + n) = x[n];
+    }
+  }
+};
+
+// Samples a thread keeps in flight: UM in the mean-shift loop, US while
+// staging (each staged sample is up to 2 C loads).  UM * NC and US * NC are
+// multiples of 4, the words of a slot.
+#define RSLF_PC_UM(NC) 8
+#define RSLF_PC_US(NC) ((NC) == 1 ? 16 : 4)
+
+// Stages samples s .. s + UN - 1 of one item into its column: all
+// positions, then all loads, then the interpolation, so that up to
+// 2 * UN * NC loads are in flight at once.  `rs` points at row s of the
+// pixel's EPI.  The ceil column is read only where it differs from the
+// floor column; elsewhere its weight is 0 and the floor value stands in.
+// `vec` reads the 4 channels of a column as one 16-byte word (NC == 4,
+// aligned volume).
+template <int NC, int UN>
+__device__ __forceinline__ void rslf_pc_stage(const float* rs,
+                                              const PcCol<NC>& col, int s,
+                                              float ds, int u, int U,
+                                              float delta, float slope,
+                                              bool vec, int& s_a, int& s_b) {
+  PcPos q[UN];
+  float xa[UN][NC], xb[UN][NC], x[UN * NC];
+#pragma unroll
+  for (int j = 0; j < UN; ++j)
+    q[j] = rslf_pc_pos(ds - (float)j, u, U, delta, slope);
+  if (NC == 4 && vec) {
+#pragma unroll
+    for (int j = 0; j < UN; ++j) {
+      const float4* r4 =
+          reinterpret_cast<const float4*>(rs) + (j * U + q[j].i0);
+      const float4 va = __ldg(r4);
+      const float4 vb = q[j].up ? __ldg(r4 + 1) : va;
+      xa[j][0] = va.x, xa[j][1 % NC] = va.y, xa[j][2 % NC] = va.z,
+      xa[j][3 % NC] = va.w;
+      xb[j][0] = vb.x, xb[j][1 % NC] = vb.y, xb[j][2 % NC] = vb.z,
+      xb[j][3 % NC] = vb.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < UN; ++j) {
+      const float* ra = rs + (j * U + q[j].i0) * NC;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        xa[j][c] = __ldg(ra + c);
+        xb[j][c] = q[j].up ? __ldg(ra + NC + c) : xa[j][c];
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < UN; ++j) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      x[j * NC + c] = (1.f - q[j].t) * xa[j][c] + q[j].t * xb[j][c];
+    if (q[j].ok) {
+      s_a = min(s_a, s + j);
+      s_b = s + j;
+    }
+  }
+  col.store(s * NC, x);
+}
+
+// One mean-shift step over samples s .. s + UN - 1 of the column: all
+// loads, then all K, then the sums in s order.
+template <int NC, int UN>
+__device__ __forceinline__ void rslf_pc_ms(const PcCol<NC>& col, int s,
+                                           float a_coef,
+                                           const float (&rb)[NC], float& sk,
+                                           float (&srk)[NC]) {
+  float x[UN * NC], k[UN];
+  col.load(s * NC, x);
+#pragma unroll
+  for (int j = 0; j < UN; ++j) {
+    float dsq = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float diff = x[j * NC + c] - rb[c];
+      const float d2 = diff * diff;
+      dsq = (c == 0) ? d2 : dsq + d2;
+    }
+    k[j] = fmaxf(1.f - a_coef * dsq, 0.f);
+  }
+#pragma unroll
+  for (int j = 0; j < UN; ++j) {
+    sk = sk + k[j];
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      srk[c] = srk[c] + fmaxf(x[j * NC + c], 0.f) * k[j];
+  }
+}
+
+// One item with NC channels in registers: stages the samples of candidate
+// `delta` of pixel (row, u), runs the mean shift, and leaves the score, the
+// final r_bar and (if `o_rbp`) the r_bar the last step started with.
+// Returns valid samples x steps run.
+template <int NC>
+__device__ __forceinline__ unsigned long long rslf_pc_item(
+    const PcArgs& a, const float* row, int u, float delta,
+    const PcCol<NC>& col, bool vec, float* o_score, float* o_rb,
+    float* o_rbp) {
+  constexpr int US = RSLF_PC_US(NC);
+  constexpr int UM = RSLF_PC_UM(NC);
+  static_assert((US * NC) % 4 == 0 && (UM * NC) % 4 == 0, "whole slots");
+  const int S = a.S, U = a.U;
+  // stage the samples; [s_a, s_b] is the run of valid ones
+  int s_a = S, s_b = -1;
+  {
+    const float fsh = (float)a.s_hat;
+    const float* rs = row;
+    int s = 0;
+    for (; s + US <= S; s += US, rs += US * U * NC)
+      rslf_pc_stage<NC, US>(rs, col, s, fsh - (float)s, u, U, delta, a.slope,
+                            vec, s_a, s_b);
+    for (; s < S; ++s, rs += U * NC)
+      rslf_pc_stage<NC, 1>(rs, col, s, fsh - (float)s, u, U, delta, a.slope,
+                           vec, s_a, s_b);
+  }
+  const int card = (s_b >= s_a) ? s_b - s_a + 1 : 0;
+
+  float rb[NC], rbp[NC], srk[NC];
+  const float* r0 = row + ((size_t)a.s_hat * U + u) * NC;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) rb[c] = __ldg(r0 + c);
+  // a batch starts at a slot: the first sample with (s * NC) % 4 == 0
+  constexpr int kAlign = 4 / (NC == 3 ? 4 : NC);
+  const int s_al = min(s_b + 1, (s_a + kAlign - 1) / kAlign * kAlign);
+  // truncated mean shift; a fixed point of r_bar ends it, since every later
+  // step would repeat the last one bit for bit
+  float sum_k = 0.f;
+  int it = 0;
+  while (it < a.iters) {
+    ++it;
+    float sk = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      rbp[c] = rb[c];
+      srk[c] = 0.f;
+    }
+    int s = s_a;
+    for (; s < s_al; ++s) rslf_pc_ms<NC, 1>(col, s, a.a_coef, rb, sk, srk);
+    for (; s + UM <= s_b + 1; s += UM)
+      rslf_pc_ms<NC, UM>(col, s, a.a_coef, rb, sk, srk);
+    for (; s <= s_b; ++s) rslf_pc_ms<NC, 1>(col, s, a.a_coef, rb, sk, srk);
+    bool same = true;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float nr = (sk > 0.f) ? srk[c] / sk : 0.f;
+      same = same && (nr == rb[c]);
+      rb[c] = nr;
+    }
+    sum_k = sk;
+    if (same) break;
+  }
+  *o_score = (card > 0) ? sum_k / (float)card : 0.f;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    o_rb[c] = rb[c];
+    if (o_rbp != nullptr) o_rbp[c] = rbp[c];
+  }
+  return (unsigned long long)it * (unsigned long long)card;
+}
+
+// One item with any C: the channel vectors sit in the thread's columns of
+// shared memory (`smem` is the block's, `tid` the thread).
+__device__ __forceinline__ unsigned long long rslf_pc_item_any(
+    const PcArgs& a, const float* row, int u, float delta, float* smem,
+    int tid, int T, float* o_score, float* o_rb, float* o_rbp) {
+  const int S = a.S, U = a.U, C = a.C;
+  float* samp = smem + tid;
+  ChanVec<0> rb, rbp, srk;
+  rslf_bind_chan<0>(smem, S, C, T, tid, rb, rbp, srk);
+  int s_a = S, s_b = -1;
+  for (int s = 0; s < S; ++s) {
+    const PcPos q =
+        rslf_pc_pos((float)(a.s_hat - s), u, U, delta, a.slope);
+    const float* ra = row + ((size_t)s * U + q.i0) * C;
+    const float* rc = ra + (q.up ? C : 0);
+    for (int c = 0; c < C; ++c)
+      samp[(s * C + c) * T] = (1.f - q.t) * __ldg(ra + c) + q.t * __ldg(rc + c);
+    if (q.ok) {
+      s_a = min(s_a, s);
+      s_b = s;
+    }
+  }
+  const int card = (s_b >= s_a) ? s_b - s_a + 1 : 0;
+  const float* r0 = row + ((size_t)a.s_hat * U + u) * C;
+  for (int c = 0; c < C; ++c) rb[c] = __ldg(r0 + c);
+  float sum_k = 0.f;
+  int it = 0;
+  while (it < a.iters) {
+    ++it;
+    float sk = 0.f;
+    for (int c = 0; c < C; ++c) {
+      rbp[c] = rb[c];
+      srk[c] = 0.f;
+    }
+    for (int s = s_a; s <= s_b; ++s) {
+      const float* x = samp + s * C * T;
+      const float k = rslf_ms_kernel<0>(x, C, T, a.a_coef, rb);
+      sk = sk + k;
+      for (int c = 0; c < C; ++c) srk[c] = srk[c] + fmaxf(x[c * T], 0.f) * k;
+    }
+    bool same = true;
+    for (int c = 0; c < C; ++c) {
+      const float nr = (sk > 0.f) ? srk[c] / sk : 0.f;
+      same = same && (nr == rb[c]);
+      rb[c] = nr;
+    }
+    sum_k = sk;
+    if (same) break;
+  }
+  *o_score = (card > 0) ? sum_k / (float)card : 0.f;
+  for (int c = 0; c < C; ++c) {
+    o_rb[c] = rb[c];
+    if (o_rbp != nullptr) o_rbp[c] = rbp[c];
+  }
+  return (unsigned long long)it * (unsigned long long)card;
+}
+
+template <int MAXC>
+__global__ void sweep_pc_kernel(const PcArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int T = blockDim.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = T >> 5;
+  // MAXC > 0 is the exact channel count, so every channel loop unrolls
+  // with no test; MAXC == 0 takes any C, its vectors in shared memory
+  const int C = MAXC > 0 ? MAXC : a.C;
+  const int S = a.S, U = a.U, D = a.D;
+  const bool masked = a.pmin != nullptr;
+  const bool with_k = a.out.k_best != nullptr;
+  const PcLayout L =
+      rslf_pc_layout(S, C, T, MAXC, a.ncap, a.G, with_k);
+  // the block's samples come first: [S][C][T], a column a thread; then, for
+  // MAXC == 0, the threads' channel vectors
+  const bool vec = (reinterpret_cast<size_t>(a.epis) & 15) == 0;
+  const PcCol<MAXC> col(smem, tid, T);
+  int* list = reinterpret_cast<int*>(smem + L.list);  // slot p * D + d
+  float* it_score = smem + L.score;
+  float* it_rb = smem + L.irb;
+  float* it_rbp = smem + L.irbp;
+  int* px_pix = reinterpret_cast<int*>(smem + L.px);
+  float* px_lo = smem + L.px + a.G;
+  float* px_rng = smem + L.px + 2 * a.G;
+  float* px_plo = smem + L.px + 3 * a.G;
+  float* px_phi = smem + L.px + 4 * a.G;
+  float* px_best = smem + L.px + 5 * a.G;
+  float* px_sum = smem + L.px + 6 * a.G;
+  int* px_bd = reinterpret_cast<int*>(smem + L.px + 7 * a.G);
+  int* px_nal = reinterpret_cast<int*>(smem + L.px + 8 * a.G);
+  float* px_rb = smem + L.prb;
+  float* px_rbp = smem + L.prbp;
+  int* wcnt = reinterpret_cast<int*>(smem + L.misc);
+  int* draw = wcnt + 32;
+  const float den = (float)(D - 1);
+  // valid samples x mean-shift steps this thread ran (the work count)
+  unsigned long long work = 0ULL;
+
+  for (int g = blockIdx.x; g * a.G < a.n_act; g += gridDim.x) {
+    const int p0 = g * a.G;
+    const int gp = min(a.G, a.n_act - p0);
+    for (int p = tid; p < gp; p += T) {
+      const int pix = a.act[p0 + p];
+      float lo = a.dmin, hi = a.dmax;
+      if (a.bmin != nullptr) {
+        lo = a.bmin[pix];
+        hi = a.bmax[pix];
+      }
+      const float rng = hi - lo;
+      px_pix[p] = pix;
+      px_lo[p] = lo;
+      px_rng[p] = rng;
+      if (masked) {
+        const float tol = rng / den;
+        px_plo[p] = a.pmin[pix] - tol;
+        px_phi[p] = a.pmax[pix] + tol;
+      }
+      px_best[p] = -1.f;
+      px_sum[p] = 0.f;
+      px_bd[p] = -1;
+      px_nal[p] = 0;
+    }
+    __syncthreads();
+
+    const int n_slots = gp * D;
+    int pos = 0;  // the next slot to look at; the same in every thread
+    while (pos < n_slots) {
+      // ---- the window's item list: the allowed slots from pos on ----
+      int n_items = 0;
+      if (tid == 0) *draw = 0;
+      while (pos < n_slots && n_items + T <= a.ncap) {
+        const int r = pos + tid;
+        bool ok = r < n_slots;
+        if (ok && masked) {
+          const int p = r / D;
+          const int d = r - p * D;
+          const float dl = px_lo[p] + ((float)d * px_rng[p]) / den;
+          ok = (dl >= px_plo[p]) && (dl <= px_phi[p]);
+        }
+        const unsigned b = __ballot_sync(0xffffffffu, ok);
+        if (lane == 0) wcnt[warp] = __popc(b);
+        __syncthreads();
+        int off = n_items, tot = 0;
+        for (int w = 0; w < nwarps; ++w) {
+          const int cw = wcnt[w];
+          if (w < warp) off += cw;
+          tot += cw;
+        }
+        if (ok) list[off + __popc(b & ((1u << lane) - 1u))] = r;
+        n_items += tot;
+        pos += T;
+        __syncthreads();
+      }
+
+      // ---- the items: warps draw 32 neighbouring ones at a time ----
+      for (;;) {
+        int jb = 0;
+        if (lane == 0) jb = atomicAdd(draw, 32);
+        jb = __shfl_sync(0xffffffffu, jb, 0);
+        if (jb >= n_items) break;
+        const int j = jb + lane;
+        if (j < n_items) {
+          const int r = list[j];
+          const int p = r / D;
+          const int d = r - p * D;
+          const int pix = px_pix[p];
+          const int v = pix / U;
+          const int u = pix - v * U;
+          const float delta = px_lo[p] + ((float)d * px_rng[p]) / den;
+          const float* row = a.epis + (size_t)v * S * U * C;  // [S][U][C]
+          float* o_rbp = with_k ? it_rbp + j * C : nullptr;
+          if constexpr (MAXC > 0) {
+            work += rslf_pc_item<MAXC>(a, row, u, delta, col, vec,
+                                       it_score + j, it_rb + j * C, o_rbp);
+          } else {
+            work += rslf_pc_item_any(a, row, u, delta, smem, tid, T,
+                                     it_score + j, it_rb + j * C, o_rbp);
+          }
+        }
+      }
+      __syncthreads();
+
+      // ---- fold: one thread per pixel, its items in candidate order ----
+      for (int p = tid; p < gp; p += T) {
+        const int first = p * D;
+        int lo_j = 0, hi_j = n_items;  // lower bound of `first` in the list
+        while (lo_j < hi_j) {
+          const int mid = (lo_j + hi_j) >> 1;
+          if (list[mid] < first) {
+            lo_j = mid + 1;
+          } else {
+            hi_j = mid;
+          }
+        }
+        float best = px_best[p], sum = px_sum[p];
+        int bd = px_bd[p], nal = px_nal[p], bj = -1;
+        for (int j = lo_j; j < n_items && list[j] < first + D; ++j) {
+          const float sc = it_score[j];
+          ++nal;
+          if (sc > best) {
+            best = sc;
+            bd = list[j] - first;
+            bj = j;
+          }
+          sum = sum + sc;
+        }
+        px_best[p] = best;
+        px_sum[p] = sum;
+        px_bd[p] = bd;
+        px_nal[p] = nal;
+        if (bj >= 0) {
+          for (int c = 0; c < C; ++c) {
+            px_rb[p * C + c] = it_rb[bj * C + c];
+            if (with_k) px_rbp[p * C + c] = it_rbp[bj * C + c];
+          }
+        }
+      }
+      __syncthreads();
+    }
+
+    // ---- the group's outputs ----
+    for (int p = tid; p < gp; p += T) {
+      const size_t pix = (size_t)px_pix[p];
+      const int bd = px_bd[p];
+      const float fD = (float)D;
+      a.out.best_score[pix] = px_best[p];
+      a.out.best_depth[pix] =
+          (bd >= 0) ? px_lo[p] + ((float)bd * px_rng[p]) / den : 0.f;
+      a.out.score_mean[pix] =
+          masked ? ((px_sum[p] * fD) / (float)max(px_nal[p], 1)) / fD
+                 : px_sum[p] / fD;
+      for (int c = 0; c < C; ++c)
+        a.out.rbar[pix * C + c] = (bd >= 0) ? px_rb[p * C + c] : 0.f;
+    }
+    if (with_k) {
+      // K of the winner's last step, one (pixel, s) a thread
+      for (int i = tid; i < gp * S; i += T) {
+        const int p = i / S;
+        const int s = i - p * S;
+        const int bd = px_bd[p];
+        const int pix = px_pix[p];
+        const int v = pix / U;
+        const int u = pix - v * U;
+        float k = 0.f;
+        if (bd >= 0) {
+          const float delta = px_lo[p] + ((float)bd * px_rng[p]) / den;
+          const PcPos q =
+              rslf_pc_pos((float)(a.s_hat - s), u, U, delta, a.slope);
+          if (q.ok) {
+            const float* row = a.epis + (size_t)v * S * U * C;
+            const float* ra = row + ((size_t)s * U + q.i0) * C;
+            const float* rc = ra + (q.up ? C : 0);
+            float dsq = 0.f;
+            for (int c = 0; c < C; ++c) {
+              const float x = (1.f - q.t) * __ldg(ra + c) + q.t * __ldg(rc + c);
+              const float diff = x - px_rbp[p * C + c];
+              const float d2 = diff * diff;
+              dsq = (c == 0) ? d2 : dsq + d2;
+            }
+            k = fmaxf(1.f - a.a_coef * dsq, 0.f);
+          }
+        }
+        a.out.k_best[((size_t)v * S + s) * U + u] = k;
+      }
+    }
+    __syncthreads();  // the next group reuses the pixel state
+  }
+
+  if (a.out.work_count != nullptr) {
+    for (int o = 16; o > 0; o >>= 1)
+      work += __shfl_down_sync(0xffffffffu, work, o);
+    if (lane == 0) atomicAdd(a.out.work_count, work);
+  }
+}
+
+// What the launcher chose for one kernel and size.
+struct PcPlan {
+  int threads;        // threads of a block
+  int ncap;           // items of a window's list
+  int smem_bytes;     // dynamic shared memory of a block
+  int blocks_per_sm;  // resident blocks an SM holds (the runtime's report)
+  int sms;            // SMs of the card
+};
+
+namespace rslf_pc {
+
+struct PlanKey {
+  int device, S, C, with_k, masked;
+};
+
+// The block size with the most resident threads an SM holds, among 128,
+// 64, 256 and 32 threads (the first on a tie), from the occupancy the
+// runtime reports for this build; a window's list holds RSLF_PC_WINDOW
+// items a thread.  Queried, and the kernel's shared-memory limit raised,
+// once per kernel and size.
+template <int MAXC>
+cudaError_t plan(int S, int C, bool with_k, bool masked, PcPlan* out) {
+  static std::mutex mu;
+  static PlanKey keys[64];
+  static PcPlan plans[64];
+  static int n_cached = 0;
+  std::lock_guard<std::mutex> guard(mu);
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  for (int i = 0; i < n_cached; ++i) {
+    const PlanKey& k = keys[i];
+    if (k.device == device && k.S == S && k.C == C && k.with_k == with_k &&
+        k.masked == masked) {
+      *out = plans[i];
+      return cudaSuccess;
+    }
+  }
+  int optin = 0, sms = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(sweep_pc_kernel<MAXC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin);
+  if (err != cudaSuccess) return err;
+  PcPlan best{0, 0, 0, 0, sms};
+  for (const int T : {128, 64, 256, 32}) {
+    const int ncap = RSLF_PC_WINDOW * T;
+    const long long bytes =
+        4LL * rslf_pc_layout(S, C, T, MAXC, ncap, RSLF_PC_GMAX(masked), with_k)
+                  .total;
+    if (bytes > (long long)optin) continue;
+    int nb = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &nb, sweep_pc_kernel<MAXC>, T, (size_t)bytes);
+    if (err != cudaSuccess) return err;
+    if (nb * T > best.blocks_per_sm * best.threads)
+      best = PcPlan{T, ncap, (int)bytes, nb, sms};
+  }
+  if (best.threads == 0) return cudaErrorInvalidConfiguration;
+  if (n_cached < 64) {
+    keys[n_cached] = PlanKey{device, S, C, with_k ? 1 : 0, masked ? 1 : 0};
+    plans[n_cached++] = best;
+  }
+  *out = best;
+  return cudaSuccess;
+}
+
+template <int MAXC>
+cudaError_t launch(PcArgs a, cudaStream_t stream) {
+  if (a.n_act <= 0) return cudaSuccess;
+  if (a.D < 1 || a.D > (1 << 26)) return cudaErrorInvalidValue;
+  const bool with_k = a.out.k_best != nullptr;
+  const bool masked = a.pmin != nullptr;
+  PcPlan p;
+  const cudaError_t err = plan<MAXC>(a.S, a.C, with_k, masked, &p);
+  if (err != cudaSuccess) return err;
+  // pixels of a group: spread the list over the resident blocks of the
+  // card; in the masked mode a pixel has few items, so keep at least 8
+  const int resident = p.blocks_per_sm * p.sms;
+  const int g_min = masked ? 8 : 1;
+  const int g_max = RSLF_PC_GMAX(masked);
+  const int g_even = (a.n_act + resident - 1) / resident;
+  a.G = g_even < g_min ? g_min : (g_even > g_max ? g_max : g_even);
+  a.ncap = p.ncap;
+  const int blocks = (a.n_act + a.G - 1) / a.G;
+  const size_t bytes =
+      4 * (size_t)rslf_pc_layout(a.S, a.C, p.threads, MAXC, p.ncap, a.G, with_k)
+              .total;
+  sweep_pc_kernel<MAXC><<<blocks, p.threads, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Calls f.template operator()<MAXC>() with the instantiation for C
+// channels: registers for C <= 4, shared memory beyond.
+template <typename F>
+cudaError_t for_channels(int C, F f) {
+  switch (C) {
+    case 1:
+      return f.template operator()<1>();
+    case 2:
+      return f.template operator()<2>();
+    case 3:
+      return f.template operator()<3>();
+    case 4:
+      return f.template operator()<4>();
+    default:
+      return f.template operator()<0>();
+  }
+}
+
+struct LaunchFn {
+  const PcArgs& a;
+  cudaStream_t stream;
+  template <int MAXC>
+  cudaError_t operator()() const {
+    return launch<MAXC>(a, stream);
+  }
+};
+
+struct PlanFn {
+  int S, C;
+  bool with_k, masked;
+  PcPlan* out;
+  template <int MAXC>
+  cudaError_t operator()() const {
+    return plan<MAXC>(S, C, with_k, masked, out);
+  }
+};
+
+// Launch on `stream`; returns the CUDA error code.
+inline int launch_for_c(const PcArgs& a, cudaStream_t stream) {
+  return (int)for_channels(a.C, LaunchFn{a, stream});
+}
+
+// The plan for C channels into out[5]: threads, items of a window, bytes of
+// shared memory, resident blocks an SM, SMs.  Returns the CUDA error code
+// (cudaErrorInvalidConfiguration when no block size fits).
+inline int plan_for_c(int S, int C, int with_k, int masked, int* out) {
+  PcPlan p{0, 0, 0, 0, 0};
+  const cudaError_t err =
+      for_channels(C, PlanFn{S, C, with_k != 0, masked != 0, &p});
+  out[0] = p.threads;
+  out[1] = p.ncap;
+  out[2] = p.smem_bytes;
+  out[3] = p.blocks_per_sm;
+  out[4] = p.sms;
+  return (int)err;
+}
+
+}  // namespace rslf_pc
+
+}  // namespace

@@ -111,12 +111,33 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def check(err: int, lib: ctypes.CDLL, error_string: str, what: str):
-    """Raise if a launch returned a CUDA error."""
+#: cudaErrorInvalidConfiguration: what a sweep launcher returns when no
+#: block size of its kernel fits the card's shared memory
+_NO_CONFIGURATION = 9
+
+
+def check(err: int, lib: ctypes.CDLL, error_string: str, what: str,
+          no_fit: Optional[str] = None):
+    """Raise if a launch returned a CUDA error: NotImplementedError with
+    ``no_fit`` (the size at fault) where a launcher found no block size
+    that fits, RuntimeError otherwise."""
+    if err == _NO_CONFIGURATION and no_fit is not None:
+        raise NotImplementedError(f"{what}: {no_fit}: one item's samples "
+                                  f"exceed a block's shared memory")
     if err != 0:
         fn = getattr(lib, error_string)
         fn.restype = ctypes.c_char_p
         raise RuntimeError(f"{what} launch failed: {fn(err).decode()}")
+
+
+def read_plan(call, lib: ctypes.CDLL, error_string: str, what: str,
+              size: str) -> dict:
+    """A sweep launcher's plan as a dict.  ``call(out)`` fills five ints
+    and returns the CUDA error code."""
+    out = (ctypes.c_int * 5)()
+    check(call(out), lib, error_string, f"{what} plan", no_fit=size)
+    keys = ("threads", "window_items", "smem_bytes", "blocks_per_sm", "sms")
+    return dict(zip(keys, out))
 
 
 def stream_ptr(device: torch.device) -> ctypes.c_void_p:

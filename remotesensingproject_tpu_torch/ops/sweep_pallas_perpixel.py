@@ -8,7 +8,9 @@ positions.  In the masked mode (``pdmin_v_u`` / ``pdmax_v_u`` given) a
 candidate outside the pixel's allowed range, widened by one grid step, can
 neither win nor count in the score mean: that is the tile-quantized coarse
 sweep, whose grid bounds :func:`tile_quantized_bounds` shares per 128-lane
-tile.  Any D and any C.
+tile.  Any D and any C.  The kernel is the (pixel, candidate) core
+``csrc/sweep_pc.cuh``; its launcher chooses the block size and the pixels
+of a group.
 
 On a CPU tensor the wrapper runs the plain version, ``ops.sweep.sweep_pile``
 (densely over every pixel); on a CUDA tensor it launches the kernel over
@@ -26,8 +28,7 @@ from ..config import DepthParams
 from ..types import DTYPE, chan_scale, f32
 from . import cuda_build
 from .sweep import SweepResult, sweep_pile
-from .sweep_pallas import (CHUNK, activity_mask, block_threads,
-                           sweep_outputs)
+from .sweep_pallas import CHUNK, activity_mask, sweep_outputs
 
 
 def tile_quantized_bounds(active_v_u: torch.Tensor, dmin_v_u: torch.Tensor,
@@ -60,13 +61,26 @@ def _tiles_fn():
     lib = cuda_build.load("sweep_tiles")
     fn = lib.rslf_sweep_tiles
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P, I, I, I, P, I, P, P, P, P, I, I, F, F, I, I,
+    fn.argtypes = [P, I, I, I, P, I, P, P, P, P, I, I, F, F, I,
                    P, P, P, P, P, P, P]
     fn.restype = ctypes.c_int
-    smem = lib.rslf_sweep_tiles_smem_bytes
-    smem.argtypes = [I, I, I]
-    smem.restype = ctypes.c_longlong
-    return lib, fn, smem
+    plan = lib.rslf_sweep_tiles_plan
+    plan.argtypes = [I, I, I, I, P]
+    plan.restype = ctypes.c_int
+    return lib, fn, plan
+
+
+def launch_plan(S: int, C: int, with_k_best: bool = False,
+                masked: bool = True) -> dict:
+    """What the launcher chose for ``S`` samples of ``C`` channels, with or
+    without ``k_best`` and the masked mode, on the current card: threads of
+    a block, items of a window, bytes of shared memory a block, resident
+    blocks an SM, SMs.  Raises NotImplementedError when no block size
+    fits."""
+    lib, _, plan = _tiles_fn()
+    return cuda_build.read_plan(
+        lambda out: plan(S, C, int(with_k_best), int(masked), out), lib,
+        "rslf_sweep_tiles_error_string", "sweep_tiles", f"S={S}, C={C}")
 
 
 def sweep_pile_tiles(epis_v_s_u_c: torch.Tensor, dmin_v_u: torch.Tensor,
@@ -121,18 +135,17 @@ def sweep_pile_tiles(epis_v_s_u_c: torch.Tensor, dmin_v_u: torch.Tensor,
     if n_act == 0:
         return out
 
-    lib, fn, smem_bytes = _tiles_fn()
-    threads = block_threads(lambda t: smem_bytes(S, C, t), dev)
+    lib, fn, _ = _tiles_fn()
     a_coef = f32(chan_scale(C) / (params.kernel_h * params.kernel_h))
     p = cuda_build.ptr
     err = fn(p(epis_v_s_u_c), S, U, C, p(act), n_act, p(dmin_v_u),
              p(dmax_v_u), p(pdmin_v_u), p(pdmax_v_u), dim_d, int(s_hat),
              f32(params.slope_factor), a_coef, params.mean_shift_max_iter,
-             threads, p(out.best_score), p(out.score_mean),
+             p(out.best_score), p(out.score_mean),
              p(out.best_depth), p(out.rbar), p(out.k_best), p(work_count),
              cuda_build.stream_ptr(dev))
     cuda_build.check(err, lib, "rslf_sweep_tiles_error_string",
-                     "sweep_tiles")
+                     "sweep_tiles", no_fit=f"S={S}, C={C}")
     sweep_pile_tiles.launches += 1
     return out
 

@@ -4,7 +4,9 @@ Counterpart of ``remotesensingproject_tpu/ops/sweep_pallas_pixel.py``,
 whose Pallas kernel ``_pixel_kernel`` the CUDA kernel replaces.  The
 kernel sweeps only the active pixels of a pass, with the uniform candidate
 grid or with each pixel's own [dmin, dmax] grid (the bounds-edited pyramid
-levels), D <= 1024 candidates and C in {1, 3}.
+levels), D <= 1024 candidates and C in {1, 3}.  The kernel is the
+(pixel, candidate) core ``csrc/sweep_pc.cuh`` in its unmasked mode; its
+launcher chooses the block size and the pixels of a group.
 
 On a CPU tensor the wrapper runs the plain version, ``ops.sweep.sweep_pile``;
 on a CUDA tensor it launches the kernel or raises.
@@ -36,13 +38,24 @@ def _sweep_fn():
     lib = cuda_build.load("sweep_pixel")
     fn = lib.rslf_sweep_pixel
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P, I, I, I, P, I, P, P, F, F, I, I, F, F, I, I,
+    fn.argtypes = [P, I, I, I, P, I, P, P, F, F, I, I, F, F, I,
                    P, P, P, P, P, P]
     fn.restype = ctypes.c_int
-    smem = lib.rslf_sweep_pixel_smem_bytes
-    smem.argtypes = [I, I, I, I]
-    smem.restype = ctypes.c_longlong
-    return lib, fn, smem
+    plan = lib.rslf_sweep_pixel_plan
+    plan.argtypes = [I, I, P]
+    plan.restype = ctypes.c_int
+    return lib, fn, plan
+
+
+def launch_plan(S: int, C: int) -> dict:
+    """What the launcher chose for ``S`` samples of ``C`` channels on the
+    current card: threads of a block, items of a window, bytes of shared
+    memory a block, resident blocks an SM, SMs.  Raises
+    NotImplementedError when no block size fits."""
+    lib, _, plan = _sweep_fn()
+    return cuda_build.read_plan(lambda out: plan(S, C, out), lib,
+                                "rslf_sweep_pixel_error_string",
+                                "sweep_pixel", f"S={S}, C={C}")
 
 
 def sweep_pile_pixel(epis_v_s_u_c: torch.Tensor, dmin: float, dmax: float,
@@ -106,26 +119,18 @@ def sweep_pile_pixel(epis_v_s_u_c: torch.Tensor, dmin: float, dmax: float,
     if n_act == 0:
         return result
 
-    lib, fn, smem_bytes = _sweep_fn()
-    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    db = min(128, -(-dim_d // 32) * 32)
-    while db > 32 and smem_bytes(S, C, dim_d, db) > limit:
-        db //= 2
-    if smem_bytes(S, C, dim_d, db) > limit:
-        raise NotImplementedError(
-            f"S={S}, C={C}, dim_d={dim_d} needs more shared memory than "
-            f"a block has")
+    lib, fn, _ = _sweep_fn()
     a_coef = f32(chan_scale(C) / (params.kernel_h * params.kernel_h))
     err = fn(cuda_build.ptr(epis_v_s_u_c), S, U, C, cuda_build.ptr(act),
              n_act, cuda_build.ptr(dmin_v_u if per_pixel else None),
              cuda_build.ptr(dmax_v_u if per_pixel else None),
              f32(dmin), f32(dmax), dim_d, int(s_hat),
              f32(params.slope_factor), a_coef, params.mean_shift_max_iter,
-             db, cuda_build.ptr(best_score), cuda_build.ptr(score_mean),
+             cuda_build.ptr(best_score), cuda_build.ptr(score_mean),
              cuda_build.ptr(best_depth), cuda_build.ptr(rbar),
              cuda_build.ptr(work_count), cuda_build.stream_ptr(dev))
     cuda_build.check(err, lib, "rslf_sweep_pixel_error_string",
-                     "sweep_pixel")
+                     "sweep_pixel", no_fit=f"S={S}, C={C}")
     sweep_pile_pixel.launches += 1
     return result
 

@@ -1,21 +1,32 @@
 #!/usr/bin/env python3
-"""Median and paint kernels at C=1 of two trees of the port, on one GPU.
+"""The five kernels and the two pipelines of two trees of the port, on one
+GPU.
 
     python3 scripts/torch_kernel_ab.py ROOT [ROOT ...]
 
 Each ROOT is a checkout of this repository (for example an earlier commit
 unpacked with ``git archive``).  For each, in turn and in its own process,
-the script builds that tree's kernels, makes the inputs of the first
-level-0 pass of the bench scene (``chip_smoke.py`` phase 2: sweep, merge,
-then the median and the paint of that pass at C=1) and prints one JSON
-line: the CUDA-event time of the median (median of 20 calls) and of the
-paint (median of 10, each on a fresh copy of the pass state), and the
-registers nvcc reports for each kernel.  List the roots as A B B A to
-compare two trees within one call.
+the script builds that tree's kernels and prints one JSON line of
+CUDA-event times (medians), at the shapes of ``chip_smoke.py``:
+
+* at the inputs of the first level-0 pass of the bench scene (C=1): the
+  pixel sweep (5 calls), the same with no mean-shift step (its staging
+  and bookkeeping alone), then merge, the median (20 calls) and the paint
+  (10 calls, each on a fresh copy of the pass state); the row sweep at
+  the pile's input, every row of that scene (3 calls);
+* the wall time of the C=1 pipeline (second run) and of the four-band
+  pipeline (one run), host clock around work that ends in a synchronise;
+* at the first-pass inputs of levels 1 and 4 of the four-band pyramid: the
+  tile sweep in the tile mode (5 and 20 calls) and, at level 1, in the
+  pixel mode (3 calls);
+* the registers nvcc reports for each kernel.
+
+List the roots as A B B A to compare two trees within one call.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import json
 import os
@@ -34,29 +45,49 @@ def _chip_smoke():
 
 
 def one(root: str) -> dict:
+    import time
+
     import torch
 
     cs = _chip_smoke()
     sys.path.insert(0, os.path.abspath(root))
     from remotesensingproject_tpu_torch.config import DEFAULT_PARAMS as p
     from remotesensingproject_tpu_torch.models.depth2d import Depth2DComputer
+    from remotesensingproject_tpu_torch.models.fine_to_coarse import \
+        FineToCoarse
     from remotesensingproject_tpu_torch.ops import cuda_build
     from remotesensingproject_tpu_torch.ops.median_pallas import \
         selective_median_cuda
     from remotesensingproject_tpu_torch.ops.propagation_pallas import \
         propagate_cuda
+    from remotesensingproject_tpu_torch.ops.sweep_pallas import \
+        sweep_pile_rows
+    from remotesensingproject_tpu_torch.ops.sweep_pallas_perpixel import (
+        sweep_pile_tiles, tile_quantized_bounds)
     from remotesensingproject_tpu_torch.ops.sweep_pallas_pixel import \
         sweep_pile_pixel
 
-    names = ("sweep_pixel", "median", "paint")
-    cuda_build.build(names)
+    cuda_build.build()
     dev = torch.device("cuda")
+    D, bounds = cs.D, (cs.DMIN, cs.DMAX)
     vol, _ = cs.synthetic_sequence(torch, dev)
-    comp = Depth2DComputer(vol, cs.DMIN, cs.DMAX, cs.D, params=p, device=dev)
+    comp = Depth2DComputer(vol, *bounds, D, params=p, device=dev)
     st = comp.initial_state()
     sh = cs.S // 2
     active = (st.ce_mask[sh] & st.claim[sh]).contiguous()
-    res = sweep_pile_pixel(comp.epis, cs.DMIN, cs.DMAX, cs.D, sh, p, active)
+
+    def pixel(params=p):
+        return sweep_pile_pixel(comp.epis, *bounds, D, sh, params, active)
+
+    res = pixel()
+    no_steps = dataclasses.replace(p, mean_shift_max_iter=0)
+    out = {"root": root, "card": cs.card_line(),
+           "sweep_pixel_ms": cs.time_ms(torch, pixel, reps=5),
+           "sweep_pixel_no_steps_ms": cs.time_ms(
+               torch, lambda: pixel(no_steps), reps=5),
+           "sweep_rows_ms": cs.time_ms(
+               torch, lambda: sweep_pile_rows(comp.epis, *bounds, D, sh, p),
+               reps=3)}
     good = active & (res.best_score > p.raw_score_threshold)
     zero = torch.zeros((), device=dev)
     depth = torch.where(good, res.best_depth, zero).contiguous()
@@ -86,13 +117,51 @@ def one(root: str) -> dict:
         propagate_cuda(cl, frames, filtered, rbar, mask, sh, p.slope_factor,
                        p.propagation_epsilon, [(t0, filtered), (t1, conf)])
 
-    median_ms = cs.time_ms(torch, median, reps=20)
-    paint_ms = cs.time_ms(torch, paint, reps=10, setup=fresh)
-    regs = {f"{n} {fn}": ln for n in names[1:]
-            for fn, ln in cs.ptxas_summary(cuda_build.build_log(n) or "")
-            if "registers" in ln}
-    return {"root": root, "card": cs.card_line(), "median_ms": median_ms,
-            "paint_ms": paint_ms, "ptxas": regs}
+    out["median_ms"] = cs.time_ms(torch, median, reps=20)
+    out["paint_ms"] = cs.time_ms(torch, paint, reps=10, setup=fresh)
+    del comp, st, res, frames, claim0
+    torch.cuda.empty_cache()
+
+    def pipeline(v):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f = FineToCoarse(v, *bounds, D, params=p, device=dev)
+        f.run()
+        f.get_results()
+        torch.cuda.synchronize()
+        return f, time.perf_counter() - t0
+
+    pipeline(vol)
+    out["c1_pipeline_s"] = pipeline(vol)[1]
+    del vol
+    torch.cuda.empty_cache()
+    vol4, _ = cs.synthetic_sequence(torch, dev, gains=cs.BAND_GAINS)
+    ftc4, out["four_band_pipeline_s"] = pipeline(vol4)
+    out["four_band_level_s"] = [round(t, 3) for t in ftc4.level_seconds]
+
+    def tiles(lvl, tile_mode, reps):
+        c, pl = ftc4.computers[lvl], ftc4.level_params[lvl]
+        s1 = c.initial_state()
+        shl = c.epis.shape[1] // 2
+        act = (s1.ce_mask[shl] & s1.claim[shl]).contiguous()
+        lo = c.dmin_s_v_u[shl].contiguous()
+        hi = c.dmax_s_v_u[shl].contiguous()
+        kw = {}
+        if tile_mode:
+            kw = dict(pdmin_v_u=lo, pdmax_v_u=hi)
+            lo, hi = tile_quantized_bounds(act, lo, hi, bounds)
+        return cs.time_ms(torch, lambda: sweep_pile_tiles(
+            c.epis, lo, hi, D, shl, pl, active_v_u=act, **kw), reps=reps)
+
+    tiles(1, True, 1)
+    out["sweep_tiles_level1_tile_ms"] = tiles(1, True, 5)
+    out["sweep_tiles_level1_pixel_ms"] = tiles(1, False, 3)
+    out["sweep_tiles_level4_tile_ms"] = tiles(4, True, 20)
+    out["ptxas"] = {f"{n} {fn}": ln for n in cuda_build.KERNELS
+                    for fn, ln in cs.ptxas_summary(cuda_build.build_log(n)
+                                                   or "")
+                    if "registers" in ln}
+    return out
 
 
 def main() -> int:
@@ -102,7 +171,7 @@ def main() -> int:
     rc = 0
     for root in sys.argv[1:]:
         rc |= subprocess.run([sys.executable, __file__, "--one", root],
-                             timeout=600).returncode
+                             timeout=900).returncode
     return rc
 
 

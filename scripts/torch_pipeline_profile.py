@@ -31,8 +31,10 @@ from remotesensingproject_tpu_torch.models.fine_to_coarse import \
     FineToCoarse  # noqa: E402
 from remotesensingproject_tpu_torch.ops import cuda_build  # noqa: E402
 
-PORTS = {"sweep_pixel_kernel": "sweep_pixel", "sweep_rows_kernel": "sweep_rows",
-         "sweep_tiles_kernel": "sweep_tiles",
+# the pixel and the tile sweep launch one core, sweep_pc_kernel: with one
+# band the pipeline reaches it through the pixel sweep only, with four
+# bands through the tile sweep only (models/depth2d.py sweep_pass)
+PORTS = {"sweep_pc_kernel": None, "sweep_rows_kernel": "sweep_rows",
          "selective_median_kernel": "median", "paint_kernel": "paint"}
 
 
@@ -51,6 +53,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
+    PORTS["sweep_pc_kernel"] = ("sweep_pixel" if args.bands == 1
+                                else "sweep_tiles")
     cuda_build.build()
     vol, _ = synthetic_sequence(torch, torch.device("cuda"),
                                 gains=BAND_GAINS if args.bands == 4 else None)

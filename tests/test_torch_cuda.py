@@ -3,8 +3,13 @@
 CUDA kernels have no CPU mode, so these tests skip without a card; on a
 machine with an H100 (and no JAX) run them with
 ``python -m pytest tests/test_torch_cuda.py --noconftest -q``.
-Median, paint and the row and tile sweeps must be bitwise equal; the
-pixel sweep uses the tolerances of tests/test_torch_sweep.py."""
+Every kernel must be bitwise equal to its plain version (the first pixel
+sweep test keeps the tolerances of tests/test_torch_sweep.py).  The pixel
+and the tile sweep share the (pixel, candidate) core ``csrc/sweep_pc.cuh``;
+their tests cover the sizes its layout must survive: D that is not a
+multiple of a warp, D beyond a window's list, every channel
+instantiation, pixels with no allowed candidate, a list of one pixel and
+lists that do not fill their last group."""
 
 import numpy as np
 import pytest
@@ -121,6 +126,101 @@ def test_sweep_kernel_matches_plain(dev, C, per_pixel, D):
     for name, atol in TOL.items():
         torch.testing.assert_close(getattr(got, name)[m],
                                    getattr(want, name)[m], rtol=0, atol=atol)
+
+
+def _ranges(V, U, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    c = torch.rand((V, U), generator=g).to(dev) * 1.7 - 0.6
+    lo = torch.clamp(c - 0.4, -1.0, 1.5).contiguous()
+    hi = torch.clamp(c + 0.4, -1.0, 1.5).contiguous()
+    active = (torch.rand((V, U), generator=g) < 0.6).to(dev)
+    return lo, hi, active
+
+
+@pytest.mark.parametrize(
+    "D,C,masked",
+    [(D, C, m) for D in (7, 120, 130) for C in (1, 3, 4, 5)
+     for m in (False, True)]
+    # D beyond a window's list
+    + [(1030, 1, True), (1030, 5, True), (1030, 4, False)])
+def test_core_sizes_through_tiles_bitwise(dev, D, C, masked):
+    epis = _vol(C, S=10, V=6, U=64).to(dev)
+    V, S, U, _ = epis.shape
+    lo, hi, active = _ranges(V, U, dev, 100 + C + D)
+    if int(active.sum()) % 8 == 0:       # keep the last group ragged
+        active[tuple(torch.nonzero(active)[0])] = False
+    kw = {}
+    if masked:
+        # some pixels whose allowed range misses the grid: n_allowed = 0
+        lo[0, :5], hi[0, :5] = 7.0, 8.0
+        active[0, :4] = True
+        qlo, qhi = tile_quantized_bounds(active, torch.clamp(lo, -1.0, 1.5),
+                                         torch.clamp(hi, -1.0, 1.5),
+                                         (-1.0, 1.5))
+        kw = dict(pdmin_v_u=lo, pdmax_v_u=hi)
+        lo, hi = qlo, qhi
+    got = sweep_pile_tiles(epis, lo, hi, D, S // 2, DepthParams(),
+                           with_k_best=True, active_v_u=active, **kw)
+    want = sweep_pile(epis, lo, hi, D, S // 2, DepthParams(),
+                      with_k_best=True, **kw)
+    _same_sweep(got, want, active, True)
+    if masked:
+        assert (got.best_score[0, :4] == -1.0).all()
+        assert not got.k_best[0, :, :4].any()
+
+
+@pytest.mark.parametrize("D", [7, 120, 130])
+@pytest.mark.parametrize("C", [1, 3])
+@pytest.mark.parametrize("per_pixel", [False, True])
+def test_core_sizes_through_pixel_bitwise(dev, D, C, per_pixel):
+    epis = _vol(C, S=10, V=6, U=64).to(dev)
+    V, S, U, _ = epis.shape
+    lo, hi, active = _ranges(V, U, dev, 200 + C + D)
+    if not per_pixel:
+        lo, hi = torch.full_like(lo, -1.0), torch.full_like(hi, 1.5)
+    kw = dict(dmin_v_u=lo, dmax_v_u=hi) if per_pixel else {}
+    got = sweep_pile_pixel(epis, -1.0, 1.5, D, S // 2, DepthParams(), active,
+                           **kw)
+    want = sweep_pile(epis, lo, hi, D, S // 2, DepthParams())
+    _same_sweep(got, want, active, False)
+
+
+@pytest.mark.parametrize("n_active", [1, 2, 9, 17, 65])
+def test_core_short_lists_bitwise(dev, n_active):
+    """One active pixel, and lists that leave the last group ragged."""
+    epis = _vol(1, S=10, V=6, U=64).to(dev)
+    V, S, U, _ = epis.shape
+    lo, hi, _ = _ranges(V, U, dev, 300)
+    g = torch.Generator().manual_seed(n_active)
+    flat = torch.zeros(V * U, dtype=torch.bool)
+    flat[torch.randperm(V * U, generator=g)[:n_active]] = True
+    active = flat.reshape(V, U).to(dev)
+    p = DepthParams()
+    got = sweep_pile_pixel(epis, -1.0, 1.5, 24, S // 2, p, active,
+                           dmin_v_u=lo, dmax_v_u=hi)
+    want = sweep_pile(epis, lo, hi, 24, S // 2, p, with_k_best=True)
+    _same_sweep(got, want, active, False)
+    assert not got.best_depth[~active].any()
+    qlo, qhi = tile_quantized_bounds(active, lo, hi, (-1.0, 1.5))
+    got = sweep_pile_tiles(epis, qlo, qhi, 24, S // 2, p, with_k_best=True,
+                           active_v_u=active, pdmin_v_u=lo, pdmax_v_u=hi)
+    want = sweep_pile(epis, qlo, qhi, 24, S // 2, p, True, lo, hi)
+    _same_sweep(got, want, active, True)
+
+
+def test_core_raises_when_no_block_size_fits(dev):
+    """2,000 samples a column: 32 threads' columns exceed a block's shared
+    memory, so both launchers raise and launch nothing."""
+    epis = torch.rand((1, 2000, 8, 1), device=dev)
+    plane = torch.zeros((1, 8), device=dev)
+    active = torch.ones((1, 8), dtype=torch.bool, device=dev)
+    n0 = sweep_pile_pixel.launches, sweep_pile_tiles.launches
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        sweep_pile_pixel(epis, -1.0, 1.5, 5, 1000, DepthParams(), active)
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        sweep_pile_tiles(epis, plane, plane + 1.0, 5, 1000, DepthParams(),
+                         active_v_u=active)
+    assert n0 == (sweep_pile_pixel.launches, sweep_pile_tiles.launches)
 
 
 @pytest.mark.parametrize("C", [1, 3, 4, 6])

@@ -11,9 +11,13 @@ import torch
 
 import oracle
 from remotesensingproject_tpu_torch.cli import main as cli
+from remotesensingproject_tpu_torch.config import DepthParams
 from remotesensingproject_tpu_torch.models.depth2d import Depth2DComputer
 from remotesensingproject_tpu_torch.models.fine_to_coarse import FineToCoarse
 from remotesensingproject_tpu_torch.models.pile import Depth1DComputerPile
+from remotesensingproject_tpu_torch.ops import (cuda_build,
+                                                sweep_pallas_perpixel,
+                                                sweep_pallas_pixel)
 from remotesensingproject_tpu_torch.types import resolve_device
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / \
@@ -71,6 +75,48 @@ def test_pile_and_depth2d_raise_without_cuda(no_cuda, tmp_path, command):
         cli.main([command, str(tmp_path / "frames"), "--ext", "png",
                   "--out", str(tmp_path / "out")])
     assert not (tmp_path / "out").exists()
+
+
+class _OnCard:
+    """Stands in for a CUDA tensor where there is no card: the shape, type
+    and layout of a CPU tensor, reported on ``cuda:0``."""
+
+    device = torch.device("cuda:0")
+
+    def __init__(self, t):
+        self.shape, self.dtype = t.shape, t.dtype
+
+    def is_contiguous(self):
+        return True
+
+
+@pytest.mark.parametrize("wrapper", ["pixel", "tiles"])
+def test_sweep_launchers_raise_for_cuda_tensor_never_plain(monkeypatch,
+                                                           wrapper):
+    """Given a CUDA tensor the pixel and the tile sweep launch their kernel
+    or raise: here, with no card and no nvcc, they must raise, and must not
+    reach the plain version."""
+    plain_calls = []
+
+    def no_nvcc(name):
+        raise RuntimeError("nvcc not found")
+
+    for mod in (sweep_pallas_pixel, sweep_pallas_perpixel):
+        monkeypatch.setattr(mod, "sweep_pile",
+                            lambda *a, **k: plain_calls.append(a))
+    monkeypatch.setattr(cuda_build, "load", no_nvcc)
+    epis = _OnCard(torch.zeros((2, 5, 16, 1)))
+    plane = _OnCard(torch.zeros((2, 16)))
+    mask = _OnCard(torch.ones((2, 16), dtype=torch.bool))
+    with pytest.raises((RuntimeError, AssertionError)):
+        if wrapper == "pixel":
+            sweep_pallas_pixel.sweep_pile_pixel(epis, -1.0, 1.5, 5, 2,
+                                                DepthParams(), mask)
+        else:
+            sweep_pallas_perpixel.sweep_pile_tiles(
+                epis, plane, plane, 5, 2, DepthParams(), active_v_u=mask,
+                pdmin_v_u=plane, pdmax_v_u=plane)
+    assert not plain_calls
 
 
 def _write_frames(vol, folder):
