@@ -8,13 +8,15 @@ Phases, one line each (details on further lines):
 1. the card's name and power limit; build of every CUDA kernel from
    ``remotesensingproject_tpu_torch/csrc`` (one nvcc each, in parallel),
    with the registers nvcc reports and the block size, shared memory and
-   resident blocks the pixel and tile sweeps' launcher chose;
+   resident blocks the launcher of the pixel, tile and row sweeps chose;
 2. each kernel against its plain PyTorch version on the card, at the
    inputs of the first level-0 pass of the bench scene (SkysatLR18 [120]:
    S=100, V=540, U=960, D=120, d in [-1, 4]), plus per-pixel bounds and
    a C=3 slab for the pixel sweep; the row sweep at the pile's input (all
-   rows of that scene, s_hat=50), with k_best and at C=4 on 64-row slabs;
-   median and paint at C=1 and at C=4.  Every kernel bitwise; each
+   rows of that scene, s_hat=50), with k_best and at C=4 on 64-row slabs,
+   and on a late pass's few active pixels; median and paint at C=1 and at
+   C=4, the paint also on a late pass's few sources and open targets with
+   a forced tile width.  Every kernel bitwise; each
    kernel's time, its plain version's, and the least time the card could
    take (``bound_ms``);
 3. the full fine-to-coarse pipeline on that scene through
@@ -182,7 +184,8 @@ def main() -> int:
         from remotesensingproject_tpu_torch.ops.sweep import sweep_pile
         from remotesensingproject_tpu_torch.ops.sweep_pallas import (
             candidate_grid, sweep_pile_rows, sweep_rows_plain)
-        from remotesensingproject_tpu_torch.ops import (sweep_pallas_perpixel,
+        from remotesensingproject_tpu_torch.ops import (sweep_pallas,
+                                                        sweep_pallas_perpixel,
                                                         sweep_pallas_pixel)
         from remotesensingproject_tpu_torch.ops.sweep_pallas_perpixel import (
             sweep_pile_tiles, tile_quantized_bounds)
@@ -192,6 +195,8 @@ def main() -> int:
             edge_confidence_volume
         from remotesensingproject_tpu_torch.ops.normalize import \
             normalize_volume
+        from remotesensingproject_tpu_torch.types import (f32,
+                                                          round_half_away)
         from remotesensingproject_tpu_torch.utils.io import (
             build_epis_from_imgs, read_imgs_from_folder)
     except ImportError as e:
@@ -223,6 +228,9 @@ def main() -> int:
           f"{sweep_pallas_pixel.launch_plan(S, 1)}")
     print(f"  launch plan sweep_tiles S={S} C=4: "
           f"{sweep_pallas_perpixel.launch_plan(S, 4)}")
+    for Cr, with_k in ((1, False), (4, True)):
+        print(f"  launch plan sweep_rows S={S} C={Cr} k_best={with_k}: "
+              f"{sweep_pallas.launch_plan(S, Cr, with_k)}")
 
     # ---- phase 2: kernels vs plain versions at level-0 pass-1 inputs ----
     params = DEFAULT_PARAMS
@@ -287,18 +295,20 @@ def main() -> int:
             lambda: sweep_pile(ep, lo, hi, D, s_hat, params), act, nbytes,
             Cs)
 
-    def check_rows(tag, ep, with_k):
+    def check_rows(tag, ep, with_k, act=None):
         Vs, Ss, Us, Cs = ep.shape
         dvec = candidate_grid(DMIN, DMAX, D, dev)
-        nbytes = (ep.numel() + Vs * Us * (4 + Cs) + D
+        if act is None:
+            act = torch.ones((Vs, Us), dtype=torch.bool, device=dev)
+        nbytes = (ep.numel() + int(act.sum()) + Vs * Us * (3 + Cs)
                   + (Vs * Ss * Us if with_k else 0)) * 4
         return check_kernel(
             f"sweep_rows {tag}",
             lambda w: sweep_pile_rows(ep, DMIN, DMAX, D, s_hat, params,
-                                      with_k_best=with_k, work_count=w),
+                                      with_k_best=with_k, active_v_u=act,
+                                      work_count=w),
             lambda: sweep_rows_plain(ep, dvec, s_hat, params, with_k),
-            torch.ones((Vs, Us), dtype=torch.bool, device=dev), nbytes,
-            Cs)[0]
+            act, nbytes, Cs)[0]
 
     full = lambda x: torch.full((V, U), x, dtype=torch.float32, device=dev)
     records["sweep_pixel"], res = check_pixel("uniform C=1", epis, active,
@@ -321,6 +331,10 @@ def main() -> int:
                                        False)
     check_rows("C=1 k_best (64 rows)", epis[:64].contiguous(), True)
     check_rows("C=4 k_best (64 rows)", epis4, True)
+    # a late pass: a few thousand active pixels scattered over the rows
+    few = torch.rand((64, U), generator=g, device=dev) < 0.05
+    check_rows(f"C=4 late pass ({int(few.sum())} px of 64 rows)", epis4,
+               False, few)
 
     # merge as the pass does, then the median on the s_hat plane
     good = active & (res.best_score > params.raw_score_threshold)
@@ -368,48 +382,76 @@ def main() -> int:
     claim0 = state.claim.clone()
     claim0[s_hat] = active
 
-    def check_paint(tag, claim, fr, src, rb, m, cf):
+    def check_paint(tag, claim, fr, src, rb, m, cf, **launch):
         Sp, Vp, Up, Cp = fr.shape
 
         def fresh():
             return (claim.clone(), torch.zeros((Sp, Vp, Up), device=dev),
                     torch.zeros((Sp, Vp, Up), device=dev))
 
-        def paint(fn, cl, t0_, t1_):
+        def paint(fn, cl, t0_, t1_, **kw):
             return fn(cl, fr, src, rb, m, s_hat, params.slope_factor,
-                      params.propagation_epsilon, [(t0_, src), (t1_, cf)])
+                      params.propagation_epsilon, [(t0_, src), (t1_, cf)],
+                      **kw)
 
         got = fresh()
-        paint(propagate_cuda, *got)
+        paint(propagate_cuda, *got, **launch)
         want = fresh()
         plain_ms = time_ms(torch, lambda: paint(propagate, *want), reps=1)
         same = all(torch.equal(a, b) for a, b in zip(got, want))
         if not same:
             failures.append(f"paint {tag} not bitwise equal")
         painted = int((claim & ~got[0]).sum())
-        ms = time_ms(torch, lambda *a: paint(propagate_cuda, *a), reps=5,
-                     setup=fresh)
-        # claim read everywhere, colours read at unclaimed targets, claim
-        # and the two payloads written at painted ones, the source planes
-        # once
+        ms = time_ms(torch, lambda *a: paint(propagate_cuda, *a, **launch),
+                     reps=5, setup=fresh)
+        # what the function needs for these sources: the mask and the
+        # source planes once; for each (frame, source) whose target lies in
+        # the row its claim byte and, where that target is open, its
+        # colours; claim and the two payloads written at painted targets
         P = 2
+        vi, ui = torch.nonzero(m, as_tuple=True)
+        per_ds = src[vi, ui] * f32(params.slope_factor)
+        n_reach = torch.zeros((), dtype=torch.int64, device=dev)
+        n_reach_open = torch.zeros_like(n_reach)
+        for s in range(Sp):
+            ut = ui + round_half_away(per_ds * float(s_hat - s)).to(
+                torch.int64)
+            ok = (ut >= 0) & (ut < Up)
+            n_reach += ok.sum()
+            n_reach_open += claim[s][vi[ok], ut[ok]].sum()
+        n_reach, n_reach_open = int(n_reach), int(n_reach_open)
         n_open = int(claim.sum())
-        nbytes = Sp * Vp * Up + n_open * 4 * Cp + painted * (1 + 4 * P) \
-            + Vp * Up * (4 + 4 * Cp + 4 * P)
-        bms, by = bound(nbytes, n_open * (3 * Cp + 3))
+        nbytes = Vp * Up * (1 + 4 + 4 * Cp + 4 * P) + n_reach \
+            + n_reach_open * 4 * Cp + painted * (1 + 4 * P)
+        bms, by = bound(nbytes, n_reach * 3 + n_reach_open * (3 * Cp + 1))
         err = max(float((a.float() - b.float()).abs().max())
                   for a, b in zip(got, want))
-        print(f"  paint {tag}: bitwise {same}, {painted} targets painted, "
+        print(f"  paint {tag}: bitwise {same}, {int(m.sum())} sources, "
+              f"{n_open} open targets, {n_reach} (frame, source) pairs in "
+              f"the row, {n_reach_open} at an open target, {painted} "
+              f"targets painted, "
               f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
-              f"{bms:.3f} ms by {by}")
+              f"{bms:.4f} ms by {by}")
         return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                     bound_by=by)
 
     records["paint"] = check_paint("C=1", claim0, frames, filtered, rbar,
                                    mask, conf)
-    check_paint("C=4 (64 rows)", claim0[:, :64].contiguous(), frames4,
-                filtered[:64].contiguous(), frames4[s_hat].contiguous(),
-                mask[:64].contiguous(), conf[:64].contiguous())
+    # a late pass: a tenth of the open targets, a hundredth of the sources
+    late = lambda shape, share: torch.rand(shape, generator=g,
+                                           device=dev) < share
+    check_paint("C=1 late pass", claim0 & late((S, V, U), 0.1), frames,
+                filtered, rbar, mask & late((V, U), 0.01), conf)
+    claim4 = claim0[:, :64].contiguous()
+    args4 = (frames4, filtered[:64].contiguous(),
+             frames4[s_hat].contiguous())
+    check_paint("C=4 (64 rows)", claim4, *args4, mask[:64].contiguous(),
+                conf[:64].contiguous())
+    check_paint("C=4 late pass, tiles of 200 columns (64 rows)",
+                claim4 & late((S, 64, U), 0.1), *args4,
+                (mask[:64] & late((64, U), 0.01)).contiguous(),
+                conf[:64].contiguous(), tile=200)
+    del claim4, args4
     del comp, epis, frames, state, res, claim0, epis3, epis4, frames4
     torch.cuda.empty_cache()
     if failures:

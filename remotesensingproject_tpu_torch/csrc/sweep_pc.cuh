@@ -1,20 +1,28 @@
-// The (pixel, candidate) core of the pixel sweep (sweep_pixel.cu) and the
-// tile sweep (sweep_tiles.cu).
+// The (pixel, candidate) core of the pixel sweep (sweep_pixel.cu), the tile
+// sweep (sweep_tiles.cu) and the row sweep (sweep_rows.cu).
 //
 // What it computes, per pixel (v, u) of a compacted list: for each candidate
 // delta = lo + (d * rng) / (D - 1) of the pixel's grid [lo, lo + rng] (the
-// level's uniform bounds or the pixel's own), the S samples at
-// I = u + ((s_hat - s) * delta) * slope, (1 - t) * row[floor(I)] + t *
-// row[ceil(I)], valid iff floor(I) >= 0 and ceil(I) <= U - 1; the truncated
-// mean shift from the pixel's s_hat colour; the score sum_s K / card_R with
-// the kernel values of the last step; over the candidates the first-max
-// argmax and the score sum in candidate order; optionally k_best, the
-// winner's kernel values.  In the masked mode (allowed ranges given) a
+// level's uniform bounds or the pixel's own), the S samples at the positions
+// of the launcher's position rule (a compile-time parameter):
+//   * per pixel (PcRulePixel): I = u + ((s_hat - s) * delta) * slope,
+//     (1 - t) * row[floor(I)] + t * row[ceil(I)], valid iff floor(I) >= 0
+//     and ceil(I) <= U - 1;
+//   * shared shift (PcRuleRow): shift = ((s_hat - s) * delta) * slope is one
+//     value for every u, i0 = floor(shift), t = shift - i0, the sample is
+//     (1 - t) * row[i0 + u] + t * row[i0 + u + 1], valid iff
+//     -i0 <= u <= U - 1 - (i0 + (t > 0)); it differs from the first rule in
+//     the last ulp of the weight;
+// then the truncated mean shift from the pixel's s_hat colour; the score
+// sum_s K / card_R with the kernel values of the last step; over the
+// candidates the first-max argmax and the score sum in candidate order;
+// optionally k_best, the winner's kernel values.  In the masked mode (allowed ranges given) a
 // candidate outside [pmin - step, pmax + step], step = rng / (D - 1), can
 // neither win nor count in the mean, which is (sum * D / max(n_allowed, 1))
 // / D.  Every sum over s is sequential from s = 0 and every comparison is
-// the plain version's (ops/sweep.py `sweep_pile`), so the result is its
-// result bit for bit (with -fmad=false and IEEE division).
+// the plain version's (ops/sweep.py `sweep_pile`; under the shared-shift
+// rule ops/sweep_pallas.py `sweep_rows_plain`), so the result is its result
+// bit for bit (with -fmad=false and IEEE division).
 //
 // Bound on this card: fp32 CUDA-core arithmetic that cannot fuse (valid
 // samples x mean-shift steps x (4C + 5) operations); the mean shift is a
@@ -31,15 +39,18 @@
 // evaluates the allowed flag of the next slots and compacts the allowed ones
 // into a list in shared memory (warp ballots and a prefix over the warps),
 // until the list holds `ncap` items or the group ends.  Warps then draw 32
-// neighbouring items at a time from the list (neighbouring candidates of one
-// pixel: their sample runs, their mean-shift lengths and their addresses are
-// alike).  An item's thread
+// neighbouring items at a time from the list.  Slot p * D + d makes them
+// neighbouring candidates of one pixel (their sample runs, their mean-shift
+// lengths and their addresses are alike); the unmasked mode can also lay the
+// slots d * G + p (`by_pixel`), which makes them neighbouring pixels of one
+// candidate: under the shared-shift rule those read contiguous addresses.
+// An item's thread
 //   * stages its samples in its own column of shared memory, in batches:
 //     the positions of a batch, then all its loads (through the read-only
 //     path, branch-free; the ceil column is read only where it differs from
 //     the floor column), then the interpolation, so that many loads are in
-//     flight; it notes the run [s_a, s_b] of valid samples: the position is
-//     monotone in s, so the valid samples are one run;
+//     flight; it notes the run [s_a, s_b] of valid samples: the position
+//     (under either rule) is monotone in s, so the valid samples are one run;
 //   * runs the mean shift over that run only, with no validity test, each
 //     staged word read once a step, in batches of 8 samples whose K are
 //     independent while the adds to the sums keep their order; a fixed
@@ -65,11 +76,32 @@
 #include <initializer_list>
 #include <mutex>
 
-#include "sweep_ms.cuh"
+#include "common.cuh"
 
-// Internal linkage: the pixel and the tile sweep are two libraries that
-// both hold this core, and each must launch and configure its own copy.
+// Internal linkage: the pixel, the tile and the row sweep are three
+// libraries that all hold this core, and each must launch and configure its
+// own copy.
 namespace {
+
+// Output pointers of one sweep launch.
+struct SweepOut {
+  float* best_score;   // [V, U]
+  float* score_mean;   // [V, U]
+  float* best_depth;   // [V, U]
+  float* rbar;         // [V, U, C]
+  float* k_best;       // [V, S, U] or null
+  unsigned long long* work_count;  // or null
+};
+
+// One thread's channel vector in a column of shared memory, element c at
+// col[c * stride] (any C; for C <= 4 the vectors sit in registers).
+struct ChanCol {
+  float* col;
+  int stride;
+  __device__ __forceinline__ float& operator[](int c) const {
+    return col[c * stride];
+  }
+};
 
 // Inputs, outputs and constants of one launch.
 struct PcArgs {
@@ -87,12 +119,17 @@ struct PcArgs {
   int iters;
   int G;              // pixels of a group
   int ncap;           // items of a window's list
+  int by_pixel;       // slots laid d * G + p (unmasked mode only)
   SweepOut out;
 };
 
 // The most pixels a group may hold.  In the masked mode a pixel has few
-// items, and a larger group fills the windows' lists better.
-#define RSLF_PC_GMAX(masked) ((masked) ? 64 : 16)
+// items, and a larger group fills the windows' lists better; with the slots
+// laid by pixel a warp's 32 items want 32 pixels of one candidate (measured
+// on an H100: 32 beats both 16 and 64 there).
+__host__ __device__ inline int rslf_pc_gmax(bool masked, bool by_pixel) {
+  return masked ? 64 : (by_pixel ? 32 : 16);
+}
 
 // Items of a window's list for each thread of the block.
 #define RSLF_PC_WINDOW 4
@@ -131,27 +168,51 @@ __host__ __device__ inline PcLayout rslf_pc_layout(int S, int C, int T,
 }
 
 // Position of a sample at `ds` = s_hat - s rows from the reference row:
-// weight t, column i0 = floor(I) (0 where the sample is invalid), up = the
-// sample also reads column i0 + 1 = ceil(I), ok = valid.  With
-// ceil(I) = floor(I) + (I > floor(I)), floor(I) >= 0 is I >= 0 and
-// ceil(I) <= U - 1 is I <= U - 1, exactly.
+// weight t, column i0 of the floor sample (0 where the sample is invalid),
+// up = the sample also reads column i0 + 1, ok = valid.
 struct PcPos {
   float t;
   int i0;
   bool up, ok;
 };
 
-__device__ __forceinline__ PcPos rslf_pc_pos(float ds, int u, int U,
-                                             float delta, float slope) {
-  const float idx = (float)u + (ds * delta) * slope;
-  const float fi = floorf(idx);
-  PcPos p;
-  p.t = idx - fi;
-  p.ok = (idx >= 0.f) && (idx <= (float)(U - 1));
-  p.up = p.ok && (p.t > 0.f);
-  p.i0 = p.ok ? (int)fi : 0;
-  return p;
-}
+// The per-pixel rule: I = u + (ds * delta) * slope.  With
+// ceil(I) = floor(I) + (I > floor(I)), floor(I) >= 0 is I >= 0 and
+// ceil(I) <= U - 1 is I <= U - 1, exactly.
+struct PcRulePixel {
+  static __device__ __forceinline__ PcPos pos(float ds, int u, int U,
+                                              float delta, float slope) {
+    const float idx = (float)u + (ds * delta) * slope;
+    const float fi = floorf(idx);
+    PcPos p;
+    p.t = idx - fi;
+    p.ok = (idx >= 0.f) && (idx <= (float)(U - 1));
+    p.up = p.ok && (p.t > 0.f);
+    p.i0 = p.ok ? (int)fi : 0;
+    return p;
+  }
+};
+
+// The shared-shift rule of the row sweep: shift = (ds * delta) * slope for
+// every u, columns floor(shift) + u and one more where t > 0, valid iff
+// -floor(shift) <= u <= U - 1 - (floor(shift) + (t > 0)).  The comparisons
+// are made on floats (exact for the integers of an image row), so a shift
+// beyond the int range is invalid and never converted.
+struct PcRuleRow {
+  static __device__ __forceinline__ PcPos pos(float ds, int u, int U,
+                                              float delta, float slope) {
+    const float shift = (ds * delta) * slope;
+    const float f0 = floorf(shift);
+    PcPos p;
+    p.t = shift - f0;
+    const float fu = (float)u;
+    const float top = f0 + (p.t > 0.f ? 1.f : 0.f);
+    p.ok = (fu >= -f0) && (fu <= (float)(U - 1) - top);
+    p.up = p.ok && (p.t > 0.f);
+    p.i0 = p.ok ? (int)f0 + u : 0;
+    return p;
+  }
+};
 
 // A thread's column of staged samples.  For C = 1, 2 and 4 the words
 // s * C + c of a column are packed four to a 16-byte slot, slot q of thread
@@ -211,7 +272,7 @@ struct PcCol {
 // floor column; elsewhere its weight is 0 and the floor value stands in.
 // `vec` reads the 4 channels of a column as one 16-byte word (NC == 4,
 // aligned volume).
-template <int NC, int UN>
+template <typename Rule, int NC, int UN>
 __device__ __forceinline__ void rslf_pc_stage(const float* rs,
                                               const PcCol<NC>& col, int s,
                                               float ds, int u, int U,
@@ -221,7 +282,7 @@ __device__ __forceinline__ void rslf_pc_stage(const float* rs,
   float xa[UN][NC], xb[UN][NC], x[UN * NC];
 #pragma unroll
   for (int j = 0; j < UN; ++j)
-    q[j] = rslf_pc_pos(ds - (float)j, u, U, delta, slope);
+    q[j] = Rule::pos(ds - (float)j, u, U, delta, slope);
   if (NC == 4 && vec) {
 #pragma unroll
     for (int j = 0; j < UN; ++j) {
@@ -291,7 +352,7 @@ __device__ __forceinline__ void rslf_pc_ms(const PcCol<NC>& col, int s,
 // `delta` of pixel (row, u), runs the mean shift, and leaves the score, the
 // final r_bar and (if `o_rbp`) the r_bar the last step started with.
 // Returns valid samples x steps run.
-template <int NC>
+template <typename Rule, int NC>
 __device__ __forceinline__ unsigned long long rslf_pc_item(
     const PcArgs& a, const float* row, int u, float delta,
     const PcCol<NC>& col, bool vec, float* o_score, float* o_rb,
@@ -307,10 +368,10 @@ __device__ __forceinline__ unsigned long long rslf_pc_item(
     const float* rs = row;
     int s = 0;
     for (; s + US <= S; s += US, rs += US * U * NC)
-      rslf_pc_stage<NC, US>(rs, col, s, fsh - (float)s, u, U, delta, a.slope,
+      rslf_pc_stage<Rule, NC, US>(rs, col, s, fsh - (float)s, u, U, delta, a.slope,
                             vec, s_a, s_b);
     for (; s < S; ++s, rs += U * NC)
-      rslf_pc_stage<NC, 1>(rs, col, s, fsh - (float)s, u, U, delta, a.slope,
+      rslf_pc_stage<Rule, NC, 1>(rs, col, s, fsh - (float)s, u, U, delta, a.slope,
                            vec, s_a, s_b);
   }
   const int card = (s_b >= s_a) ? s_b - s_a + 1 : 0;
@@ -360,17 +421,19 @@ __device__ __forceinline__ unsigned long long rslf_pc_item(
 
 // One item with any C: the channel vectors sit in the thread's columns of
 // shared memory (`smem` is the block's, `tid` the thread).
+template <typename Rule>
 __device__ __forceinline__ unsigned long long rslf_pc_item_any(
     const PcArgs& a, const float* row, int u, float delta, float* smem,
     int tid, int T, float* o_score, float* o_rb, float* o_rbp) {
   const int S = a.S, U = a.U, C = a.C;
   float* samp = smem + tid;
-  ChanVec<0> rb, rbp, srk;
-  rslf_bind_chan<0>(smem, S, C, T, tid, rb, rbp, srk);
+  // the thread's three channel vectors, behind the block's samples
+  float* chan = smem + (size_t)S * C * T + tid;
+  const ChanCol rb{chan, T}, rbp{chan + (size_t)C * T, T},
+      srk{chan + 2 * (size_t)C * T, T};
   int s_a = S, s_b = -1;
   for (int s = 0; s < S; ++s) {
-    const PcPos q =
-        rslf_pc_pos((float)(a.s_hat - s), u, U, delta, a.slope);
+    const PcPos q = Rule::pos((float)(a.s_hat - s), u, U, delta, a.slope);
     const float* ra = row + ((size_t)s * U + q.i0) * C;
     const float* rc = ra + (q.up ? C : 0);
     for (int c = 0; c < C; ++c)
@@ -394,7 +457,13 @@ __device__ __forceinline__ unsigned long long rslf_pc_item_any(
     }
     for (int s = s_a; s <= s_b; ++s) {
       const float* x = samp + s * C * T;
-      const float k = rslf_ms_kernel<0>(x, C, T, a.a_coef, rb);
+      float dsq = 0.f;
+      for (int c = 0; c < C; ++c) {
+        const float diff = x[c * T] - rb[c];
+        const float d2 = diff * diff;
+        dsq = (c == 0) ? d2 : dsq + d2;
+      }
+      const float k = fmaxf(1.f - a.a_coef * dsq, 0.f);
       sk = sk + k;
       for (int c = 0; c < C; ++c) srk[c] = srk[c] + fmaxf(x[c * T], 0.f) * k;
     }
@@ -415,7 +484,7 @@ __device__ __forceinline__ unsigned long long rslf_pc_item_any(
   return (unsigned long long)it * (unsigned long long)card;
 }
 
-template <int MAXC>
+template <int MAXC, typename Rule>
 __global__ void sweep_pc_kernel(const PcArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int T = blockDim.x;
@@ -435,7 +504,9 @@ __global__ void sweep_pc_kernel(const PcArgs a) {
   // MAXC == 0, the threads' channel vectors
   const bool vec = (reinterpret_cast<size_t>(a.epis) & 15) == 0;
   const PcCol<MAXC> col(smem, tid, T);
-  int* list = reinterpret_cast<int*>(smem + L.list);  // slot p * D + d
+  // slot p * D + d, or d * gp + p with the slots laid by pixel
+  int* list = reinterpret_cast<int*>(smem + L.list);
+  const bool by_pixel = a.by_pixel != 0;
   float* it_score = smem + L.score;
   float* it_rb = smem + L.irb;
   float* it_rbp = smem + L.irbp;
@@ -491,7 +562,7 @@ __global__ void sweep_pc_kernel(const PcArgs a) {
       while (pos < n_slots && n_items + T <= a.ncap) {
         const int r = pos + tid;
         bool ok = r < n_slots;
-        if (ok && masked) {
+        if (ok && masked) {  // never with the slots laid by pixel
           const int p = r / D;
           const int d = r - p * D;
           const float dl = px_lo[p] + ((float)d * px_rng[p]) / den;
@@ -521,8 +592,10 @@ __global__ void sweep_pc_kernel(const PcArgs a) {
         const int j = jb + lane;
         if (j < n_items) {
           const int r = list[j];
-          const int p = r / D;
-          const int d = r - p * D;
+          const int q = r / (by_pixel ? gp : D);
+          const int m = r - q * (by_pixel ? gp : D);
+          const int p = by_pixel ? m : q;
+          const int d = by_pixel ? q : m;
           const int pix = px_pix[p];
           const int v = pix / U;
           const int u = pix - v * U;
@@ -530,11 +603,13 @@ __global__ void sweep_pc_kernel(const PcArgs a) {
           const float* row = a.epis + (size_t)v * S * U * C;  // [S][U][C]
           float* o_rbp = with_k ? it_rbp + j * C : nullptr;
           if constexpr (MAXC > 0) {
-            work += rslf_pc_item<MAXC>(a, row, u, delta, col, vec,
-                                       it_score + j, it_rb + j * C, o_rbp);
+            work += rslf_pc_item<Rule, MAXC>(a, row, u, delta, col, vec,
+                                             it_score + j, it_rb + j * C,
+                                             o_rbp);
           } else {
-            work += rslf_pc_item_any(a, row, u, delta, smem, tid, T,
-                                     it_score + j, it_rb + j * C, o_rbp);
+            work += rslf_pc_item_any<Rule>(a, row, u, delta, smem, tid, T,
+                                           it_score + j, it_rb + j * C,
+                                           o_rbp);
           }
         }
       }
@@ -542,24 +617,39 @@ __global__ void sweep_pc_kernel(const PcArgs a) {
 
       // ---- fold: one thread per pixel, its items in candidate order ----
       for (int p = tid; p < gp; p += T) {
-        const int first = p * D;
-        int lo_j = 0, hi_j = n_items;  // lower bound of `first` in the list
-        while (lo_j < hi_j) {
-          const int mid = (lo_j + hi_j) >> 1;
-          if (list[mid] < first) {
-            lo_j = mid + 1;
-          } else {
-            hi_j = mid;
+        // the pixel's items of this window, in candidate order: list
+        // positions j_lo, j_lo + step, ...
+        int j_lo, step;
+        if (by_pixel) {
+          // unmasked: the list is the slots w0 .. w0 + n_items - 1, and
+          // the pixel's are those congruent to p modulo gp
+          const int w0 = list[0];
+          j_lo = ((p - w0) % gp + gp) % gp;
+          step = gp;
+        } else {
+          const int first = p * D;
+          int lo_j = 0, hi_j = n_items;  // lower bound of `first` in the list
+          while (lo_j < hi_j) {
+            const int mid = (lo_j + hi_j) >> 1;
+            if (list[mid] < first) {
+              lo_j = mid + 1;
+            } else {
+              hi_j = mid;
+            }
           }
+          j_lo = lo_j;
+          step = 1;
         }
         float best = px_best[p], sum = px_sum[p];
         int bd = px_bd[p], nal = px_nal[p], bj = -1;
-        for (int j = lo_j; j < n_items && list[j] < first + D; ++j) {
+        for (int j = j_lo; j < n_items; j += step) {
+          const int d = by_pixel ? list[j] / gp : list[j] - p * D;
+          if (d >= D) break;  // the next pixel's items
           const float sc = it_score[j];
           ++nal;
           if (sc > best) {
             best = sc;
-            bd = list[j] - first;
+            bd = d;
             bj = j;
           }
           sum = sum + sc;
@@ -605,7 +695,7 @@ __global__ void sweep_pc_kernel(const PcArgs a) {
         if (bd >= 0) {
           const float delta = px_lo[p] + ((float)bd * px_rng[p]) / den;
           const PcPos q =
-              rslf_pc_pos((float)(a.s_hat - s), u, U, delta, a.slope);
+              Rule::pos((float)(a.s_hat - s), u, U, delta, a.slope);
           if (q.ok) {
             const float* row = a.epis + (size_t)v * S * U * C;
             const float* ra = row + ((size_t)s * U + q.i0) * C;
@@ -645,16 +735,17 @@ struct PcPlan {
 namespace rslf_pc {
 
 struct PlanKey {
-  int device, S, C, with_k, masked;
+  int device, S, C, with_k, g_max;
 };
 
 // The block size with the most resident threads an SM holds, among 128,
 // 64, 256 and 32 threads (the first on a tie), from the occupancy the
 // runtime reports for this build; a window's list holds RSLF_PC_WINDOW
-// items a thread.  Queried, and the kernel's shared-memory limit raised,
-// once per kernel and size.
-template <int MAXC>
-cudaError_t plan(int S, int C, bool with_k, bool masked, PcPlan* out) {
+// items a thread and the pixel state is sized for groups of `g_max` pixels.
+// Queried, and the kernel's shared-memory limit raised, once per kernel and
+// size.
+template <int MAXC, typename Rule>
+cudaError_t plan(int S, int C, bool with_k, int g_max, PcPlan* out) {
   static std::mutex mu;
   static PlanKey keys[64];
   static PcPlan plans[64];
@@ -666,7 +757,7 @@ cudaError_t plan(int S, int C, bool with_k, bool masked, PcPlan* out) {
   for (int i = 0; i < n_cached; ++i) {
     const PlanKey& k = keys[i];
     if (k.device == device && k.S == S && k.C == C && k.with_k == with_k &&
-        k.masked == masked) {
+        k.g_max == g_max) {
       *out = plans[i];
       return cudaSuccess;
     }
@@ -677,7 +768,7 @@ cudaError_t plan(int S, int C, bool with_k, bool masked, PcPlan* out) {
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(sweep_pc_kernel<MAXC>,
+  err = cudaFuncSetAttribute(sweep_pc_kernel<MAXC, Rule>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              optin);
   if (err != cudaSuccess) return err;
@@ -685,39 +776,42 @@ cudaError_t plan(int S, int C, bool with_k, bool masked, PcPlan* out) {
   for (const int T : {128, 64, 256, 32}) {
     const int ncap = RSLF_PC_WINDOW * T;
     const long long bytes =
-        4LL * rslf_pc_layout(S, C, T, MAXC, ncap, RSLF_PC_GMAX(masked), with_k)
-                  .total;
+        4LL * rslf_pc_layout(S, C, T, MAXC, ncap, g_max, with_k).total;
     if (bytes > (long long)optin) continue;
     int nb = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &nb, sweep_pc_kernel<MAXC>, T, (size_t)bytes);
+        &nb, sweep_pc_kernel<MAXC, Rule>, T, (size_t)bytes);
     if (err != cudaSuccess) return err;
     if (nb * T > best.blocks_per_sm * best.threads)
       best = PcPlan{T, ncap, (int)bytes, nb, sms};
   }
   if (best.threads == 0) return cudaErrorInvalidConfiguration;
   if (n_cached < 64) {
-    keys[n_cached] = PlanKey{device, S, C, with_k ? 1 : 0, masked ? 1 : 0};
+    keys[n_cached] = PlanKey{device, S, C, with_k ? 1 : 0, g_max};
     plans[n_cached++] = best;
   }
   *out = best;
   return cudaSuccess;
 }
 
-template <int MAXC>
+template <int MAXC, typename Rule>
 cudaError_t launch(PcArgs a, cudaStream_t stream) {
   if (a.n_act <= 0) return cudaSuccess;
-  if (a.D < 1 || a.D > (1 << 26)) return cudaErrorInvalidValue;
+  // (float)d is exact up to 2^24, as the float32 arange of the plain
+  // versions' grids is, and a group's G * D slots (G <= 64) stay in an int
+  if (a.D < 1 || a.D > (1 << 24)) return cudaErrorInvalidValue;
   const bool with_k = a.out.k_best != nullptr;
   const bool masked = a.pmin != nullptr;
+  const bool by_pixel = a.by_pixel != 0;
+  if (masked && by_pixel) return cudaErrorInvalidValue;
+  const int g_max = rslf_pc_gmax(masked, by_pixel);
   PcPlan p;
-  const cudaError_t err = plan<MAXC>(a.S, a.C, with_k, masked, &p);
+  const cudaError_t err = plan<MAXC, Rule>(a.S, a.C, with_k, g_max, &p);
   if (err != cudaSuccess) return err;
   // pixels of a group: spread the list over the resident blocks of the
   // card; in the masked mode a pixel has few items, so keep at least 8
   const int resident = p.blocks_per_sm * p.sms;
   const int g_min = masked ? 8 : 1;
-  const int g_max = RSLF_PC_GMAX(masked);
   const int g_even = (a.n_act + resident - 1) / resident;
   a.G = g_even < g_min ? g_min : (g_even > g_max ? g_max : g_even);
   a.ncap = p.ncap;
@@ -725,7 +819,7 @@ cudaError_t launch(PcArgs a, cudaStream_t stream) {
   const size_t bytes =
       4 * (size_t)rslf_pc_layout(a.S, a.C, p.threads, MAXC, p.ncap, a.G, with_k)
               .total;
-  sweep_pc_kernel<MAXC><<<blocks, p.threads, bytes, stream>>>(a);
+  sweep_pc_kernel<MAXC, Rule><<<blocks, p.threads, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -747,37 +841,45 @@ cudaError_t for_channels(int C, F f) {
   }
 }
 
+template <typename Rule>
 struct LaunchFn {
   const PcArgs& a;
   cudaStream_t stream;
   template <int MAXC>
   cudaError_t operator()() const {
-    return launch<MAXC>(a, stream);
+    return launch<MAXC, Rule>(a, stream);
   }
 };
 
+template <typename Rule>
 struct PlanFn {
   int S, C;
-  bool with_k, masked;
+  bool with_k;
+  int g_max;
   PcPlan* out;
   template <int MAXC>
   cudaError_t operator()() const {
-    return plan<MAXC>(S, C, with_k, masked, out);
+    return plan<MAXC, Rule>(S, C, with_k, g_max, out);
   }
 };
 
-// Launch on `stream`; returns the CUDA error code.
+// Launch on `stream` under position rule `Rule`; returns the CUDA error
+// code.
+template <typename Rule>
 inline int launch_for_c(const PcArgs& a, cudaStream_t stream) {
-  return (int)for_channels(a.C, LaunchFn{a, stream});
+  return (int)for_channels(a.C, LaunchFn<Rule>{a, stream});
 }
 
 // The plan for C channels into out[5]: threads, items of a window, bytes of
 // shared memory, resident blocks an SM, SMs.  Returns the CUDA error code
 // (cudaErrorInvalidConfiguration when no block size fits).
-inline int plan_for_c(int S, int C, int with_k, int masked, int* out) {
+template <typename Rule>
+inline int plan_for_c(int S, int C, int with_k, int masked, int by_pixel,
+                      int* out) {
   PcPlan p{0, 0, 0, 0, 0};
-  const cudaError_t err =
-      for_channels(C, PlanFn{S, C, with_k != 0, masked != 0, &p});
+  const cudaError_t err = for_channels(
+      C, PlanFn<Rule>{S, C, with_k != 0,
+                      rslf_pc_gmax(masked != 0, by_pixel != 0), &p});
   out[0] = p.threads;
   out[1] = p.ncap;
   out[2] = p.smem_bytes;

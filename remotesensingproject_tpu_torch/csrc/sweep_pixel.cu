@@ -36,7 +36,7 @@ RSLF_DEFINE_ERROR_STRING(rslf_sweep_pixel_error_string)
 // Returns the CUDA error code (cudaErrorInvalidConfiguration when no block
 // size fits).
 RSLF_EXPORT int rslf_sweep_pixel_plan(int S, int C, int* out) {
-  return rslf_pc::plan_for_c(S, C, 0, 0, out);
+  return rslf_pc::plan_for_c<PcRulePixel>(S, C, 0, 0, 0, out);
 }
 
 // Launch on `stream`; returns the CUDA error code of the launch.  `bmin` /
@@ -48,8 +48,8 @@ RSLF_EXPORT int rslf_sweep_pixel(
     float* best_score, float* score_mean, float* best_depth, float* rbar,
     unsigned long long* work_count, void* stream) {
   const PcArgs a{epis, S, U, C, act, n_act, bmin, bmax, dmin, dmax,
-                 nullptr, nullptr, D, s_hat, slope, a_coef, iters, 0, 0,
+                 nullptr, nullptr, D, s_hat, slope, a_coef, iters, 0, 0, 0,
                  SweepOut{best_score, score_mean, best_depth, rbar, nullptr,
                           work_count}};
-  return rslf_pc::launch_for_c(a, (cudaStream_t)stream);
+  return rslf_pc::launch_for_c<PcRulePixel>(a, (cudaStream_t)stream);
 }

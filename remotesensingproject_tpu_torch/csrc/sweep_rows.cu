@@ -6,132 +6,63 @@
 // ops/sweep_pallas.py `sweep_pile_rows`.
 //
 // What it computes, per pixel (v, u) it is given: for each candidate
-// d = dvec[k] of the uniform grid (one value for every pixel), the S
-// samples at u + shift, where shift = ((s_hat - s) * d) * slope is ONE value
-// per (s, d) shared by all u: i0 = floor(shift), t = shift - i0, the sample
-// is row[i0 + u] where t == 0 and (1 - t) * row[i0 + u] + t * row[i0 + u + 1]
-// elsewhere, valid iff -i0 <= u <= U - 1 - (i0 + (t > 0)).  This differs
-// from the per-pixel rounding of floor(u + shift) (sweep_pixel.cu) in the
-// last ulp of the weight, as the TPU kernel does.  Then the truncated mean
-// shift and scoring of sweep_ms.cuh, the first-max argmax and the score
-// mean over all D candidates, and optionally k_best [V, S, U], the winning
-// candidate's kernel values.
+// delta = dmin + (d * (dmax - dmin)) / (D - 1) of the uniform grid (one
+// value for every pixel), the S samples at u + shift, where
+// shift = ((s_hat - s) * delta) * slope is ONE value per (s, d) shared by
+// all u: i0 = floor(shift), t = shift - i0, the sample is
+// (1 - t) * row[i0 + u] + t * row[i0 + u + 1] (row[i0 + u] where t == 0),
+// valid iff -i0 <= u <= U - 1 - (i0 + (t > 0)).  This differs from the
+// per-pixel rounding of floor(u + shift) (sweep_pixel.cu) in the last ulp
+// of the weight, as the TPU kernel does.  Then the truncated mean shift and
+// scoring, the first-max argmax and the score mean over all D candidates,
+// and optionally k_best [V, S, U], the winning candidate's kernel values.
 //
-// Bound on this card: fp32 CUDA-core arithmetic.  The work is pixels x D x
-// valid samples x mean-shift steps x (4C + 5) flops; the bytes are one read
-// of the EPI volume and a few floats out per pixel.
+// Bound on this card: fp32 CUDA-core arithmetic that cannot fuse.  The work
+// is pixels x D x valid samples x mean-shift steps x (4C + 5) operations;
+// the bytes are one read of the EPI volume and a few floats out per pixel.
 //
-// Design: one thread per pixel, over a compacted list of the pixels to
-// sweep (the TPU kernel's per-row and per-128-lane-chunk activity flags
-// become that list, so a skipped pixel costs nothing).  Consecutive threads
-// hold consecutive pixels of a row, and since all u of a row read at one
-// offset per (s, d), a warp's global reads are contiguous.  Each thread
-// stages its S x C samples of the current candidate in its own column of
-// shared memory ([s][c][thread], conflict-free), runs the mean shift on
-// them, and walks the candidates in order, so that the argmax and the
-// score sum follow the plain version's order with no synchronisation.
-// The TPU kernel's padded VMEM rows, lane-group gathers and manual DMA
-// are not needed.  No limit on D; any C (registers for C <= 4, shared
-// memory beyond).
+// Design: a launcher of the (pixel, candidate) core, sweep_pc.cuh, in its
+// unmasked mode under the shared-shift position rule (PcRuleRow): every
+// candidate of every listed pixel is an item, a thread owns one item at a
+// time, a block takes a group of consecutive listed pixels (the TPU
+// kernel's per-row and per-128-lane-chunk activity flags become that list,
+// so a skipped pixel costs nothing), and one thread per pixel folds the
+// scores in candidate order.  What bounds it is the shared memory of the
+// staged samples (S x C floats a thread), so the parallelism is found
+// inside a thread (batches of samples in flight) and over the D candidates
+// of a pixel, not only over pixels: a late pass with a few thousand active
+// pixels still fills the card.  A group's slots are laid d * G + p, so that
+// a warp's 32 items are 32 neighbouring pixels of one candidate, which under
+// this rule read contiguous addresses (on an H100 5% faster than p * D + d,
+// 32 neighbouring candidates of one pixel).  The TPU kernel's padded VMEM
+// rows, lane-group gathers and manual DMA are not needed.  Any D, any C
+// (registers for C <= 4, shared memory beyond).
 
-#include "sweep_ms.cuh"
-
-namespace {
-
-template <int MAXC>
-__global__ void sweep_rows_kernel(const float* __restrict__ epis, int S,
-                                  int U, int C, const int* __restrict__ act,
-                                  int n_act, const float* __restrict__ dvec,
-                                  int D, int s_hat, float slope, float a_coef,
-                                  int iters, SweepOut out) {
-  extern __shared__ float smem[];
-  const int T = blockDim.x;
-  const int tid = threadIdx.x;
-  const int n = blockIdx.x * T + tid;
-  if (n >= n_act) return;
-  const int pix = act[n];
-  const int v = pix / U;
-  const int u = pix - v * U;
-  const float* row = epis + (size_t)v * S * U * C;  // [S][U][C]
-  float* samp = smem + tid;                          // [S][C][T]
-  ChanVec<MAXC> rb, rbp, srk;
-  rslf_bind_chan<MAXC>(smem, S, C, T, tid, rb, rbp, srk);
-
-  auto stage = [&](int d, float* delta) -> float {
-    const float dval = dvec[d];
-    *delta = dval;
-    float card = 0.f;
-    for (int s = 0; s < S; ++s) {
-      const float shift = ((float)(s_hat - s) * dval) * slope;
-      const float f0 = floorf(shift);
-      const float t = shift - f0;
-      const int i0 = (int)f0;
-      const bool ok = (u >= -i0) && (u <= U - 1 - (i0 + (t > 0.f ? 1 : 0)));
-      const float* src = row + ((size_t)s * U + (ok ? i0 + u : 0)) * C;
-      for (int c = 0; c < C; ++c) {
-        float val = __int_as_float(0x7fc00000);  // NaN marks invalid
-        if (ok) {
-          const float a = src[c];
-          val = (t == 0.f) ? a : (1.f - t) * a + t * src[C + c];
-        }
-        samp[(s * C + c) * T] = val;
-      }
-      card = card + (ok ? 1.f : 0.f);
-    }
-    return card;
-  };
-  rslf_sweep_candidates<MAXC>(stage, samp, row + ((size_t)s_hat * U + u) * C,
-                              S, U, C, T, D, a_coef, iters, false, v, u, rb,
-                              rbp, srk, out);
-}
-
-template <int MAXC>
-int launch(const float* epis, int S, int U, int C, const int* act, int n_act,
-           const float* dvec, int D, int s_hat, float slope, float a_coef,
-           int iters, int threads, const SweepOut& out, cudaStream_t stream) {
-  const long long smem =
-      rslf_sweep_smem_floats(S, C, threads, MAXC) * (long long)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      sweep_rows_kernel<MAXC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (n_act + threads - 1) / threads;
-  sweep_rows_kernel<MAXC><<<blocks, threads, (size_t)smem, stream>>>(
-      epis, S, U, C, act, n_act, dvec, D, s_hat, slope, a_coef, iters, out);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+#include "sweep_pc.cuh"
 
 RSLF_DEFINE_ERROR_STRING(rslf_sweep_rows_error_string)
 
-// Shared memory a block of `threads` threads needs.
-RSLF_EXPORT long long rslf_sweep_rows_smem_bytes(int S, int C, int threads) {
-  return rslf_sweep_smem_floats(S, C, threads, rslf_sweep_maxc(C)) *
-         (long long)sizeof(float);
+// The launcher's plan for this size into out[5]: threads of a block, items
+// of a window, bytes of shared memory a block, resident blocks an SM, SMs.
+// Returns the CUDA error code (cudaErrorInvalidConfiguration when no block
+// size fits).
+RSLF_EXPORT int rslf_sweep_rows_plan(int S, int C, int with_k, int* out) {
+  return rslf_pc::plan_for_c<PcRuleRow>(S, C, with_k, 0, 1, out);
 }
 
-// Launch on `stream`; returns cudaGetLastError() of the launch.  `k_best`
+// Launch on `stream`; returns the CUDA error code of the launch.  `k_best`
 // and `work_count` may be null.
 RSLF_EXPORT int rslf_sweep_rows(const float* epis, int S, int U, int C,
-                                const int* act, int n_act, const float* dvec,
-                                int D, int s_hat, float slope, float a_coef,
-                                int iters, int threads, float* best_score,
-                                float* score_mean, float* best_depth,
-                                float* rbar, float* k_best,
+                                const int* act, int n_act, float dmin,
+                                float dmax, int D, int s_hat, float slope,
+                                float a_coef, int iters,
+                                float* best_score, float* score_mean,
+                                float* best_depth, float* rbar, float* k_best,
                                 unsigned long long* work_count, void* stream) {
-  const SweepOut out{best_score, score_mean, best_depth, rbar, k_best,
-                     work_count};
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (rslf_sweep_maxc(C)) {
-    case 1:
-      return launch<1>(epis, S, U, C, act, n_act, dvec, D, s_hat, slope,
-                       a_coef, iters, threads, out, st);
-    case 4:
-      return launch<4>(epis, S, U, C, act, n_act, dvec, D, s_hat, slope,
-                       a_coef, iters, threads, out, st);
-    default:
-      return launch<0>(epis, S, U, C, act, n_act, dvec, D, s_hat, slope,
-                       a_coef, iters, threads, out, st);
-  }
+  const PcArgs a{epis, S, U, C, act, n_act, nullptr, nullptr, dmin, dmax,
+                 nullptr, nullptr, D, s_hat, slope, a_coef, iters, 0, 0,
+                 /*by_pixel=*/1,
+                 SweepOut{best_score, score_mean, best_depth, rbar, k_best,
+                          work_count}};
+  return rslf_pc::launch_for_c<PcRuleRow>(a, (cudaStream_t)stream);
 }

@@ -44,7 +44,7 @@ RSLF_DEFINE_ERROR_STRING(rslf_sweep_tiles_error_string)
 // size fits).
 RSLF_EXPORT int rslf_sweep_tiles_plan(int S, int C, int with_k, int masked,
                                       int* out) {
-  return rslf_pc::plan_for_c(S, C, with_k, masked, out);
+  return rslf_pc::plan_for_c<PcRulePixel>(S, C, with_k, masked, 0, out);
 }
 
 // Launch on `stream`; returns the CUDA error code of the launch.  `pmin` /
@@ -60,8 +60,8 @@ RSLF_EXPORT int rslf_sweep_tiles(const float* epis, int S, int U, int C,
                                  unsigned long long* work_count,
                                  void* stream) {
   const PcArgs a{epis, S, U, C, act, n_act, bmin, bmax, 0.f, 0.f,
-                 pmin, pmax, D, s_hat, slope, a_coef, iters, 0, 0,
+                 pmin, pmax, D, s_hat, slope, a_coef, iters, 0, 0, 0,
                  SweepOut{best_score, score_mean, best_depth, rbar, k_best,
                           work_count}};
-  return rslf_pc::launch_for_c(a, (cudaStream_t)stream);
+  return rslf_pc::launch_for_c<PcRulePixel>(a, (cudaStream_t)stream);
 }

@@ -5,7 +5,10 @@ whose Pallas kernel ``_paint_kernel`` the CUDA kernel replaces.  Same
 contract as the plain version, ``ops.propagation.propagate``, which the
 wrapper runs on a CPU tensor, and bit for bit the same result; on a CUDA
 tensor it launches the kernel or raises.  Claim and targets are updated
-in place.
+in place.  The kernel is driven from the sources (one offset rounding per
+frame and source, the smallest qualifying source column wins a target), so
+it takes the depths, the source mask and the slope factor as they are and
+needs no offset range.
 """
 
 from __future__ import annotations
@@ -16,15 +19,19 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from ..types import DTYPE, chan_scale, f32
+from ..types import chan_scale, f32
 from . import cuda_build
-from .propagation import propagate, source_offset_range
+from .propagation import propagate
+
+#: the most target columns a block of the kernel takes
+MAX_TILE = 8192
+
 
 def _paint_fn():
     lib = cuda_build.load("paint")
     fn = lib.rslf_paint
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P, P, P, P, P, I, I, I, I, I, F, F, P, P, P, P, P]
+    fn.argtypes = [P, P, P, P, P, I, I, I, I, I, F, F, F, P, P, P, P, I, P]
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -33,8 +40,13 @@ def propagate_cuda(claim_s_v_u: torch.Tensor, frames_s_v_u_c: torch.Tensor,
                    depth_f_v_u: torch.Tensor, rbar_v_u_c: torch.Tensor,
                    source_mask_v_u: torch.Tensor, s_hat: int,
                    slope_factor: float, epsilon: float,
-                   payloads: Sequence[Tuple[torch.Tensor, torch.Tensor]]):
-    """Drop-in for ``ops.propagation.propagate`` (bitwise equal)."""
+                   payloads: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                   tile: int = 0):
+    """Drop-in for ``ops.propagation.propagate`` (bitwise equal).
+
+    ``tile`` is the number of target columns a block of the kernel takes,
+    at most :data:`MAX_TILE`; 0 lets the launcher choose, and the result
+    does not depend on it."""
     dev = claim_s_v_u.device
     if dev.type != "cuda":
         return propagate(claim_s_v_u, frames_s_v_u_c, depth_f_v_u,
@@ -52,17 +64,19 @@ def propagate_cuda(claim_s_v_u: torch.Tensor, frames_s_v_u_c: torch.Tensor,
         cuda_build.require("payload target", tgt, dev)
         cuda_build.require("payload source", src, dev)
 
-    offs_num = depth_f_v_u * f32(slope_factor)
-    # sources carry their offset per unit ds, the others NaN
-    nan = torch.tensor(float("nan"), dtype=DTYPE, device=dev)
-    tag = torch.where(source_mask_v_u, offs_num, nan).contiguous()
-    rng = source_offset_range(offs_num, source_mask_v_u)
-    ptrs = [cuda_build.ptr(t) for tgt, src in payloads for t in (src, tgt)]
+    if not 0 <= tile <= MAX_TILE:
+        raise ValueError(f"tile must be in [0, {MAX_TILE}]")
+    depth_f_v_u = depth_f_v_u.contiguous()
+    source_mask_v_u = source_mask_v_u.contiguous()
+    cuda_build.require("depth", depth_f_v_u, dev)
+    cuda_build.require("source mask", source_mask_v_u, dev, torch.bool)
     lib, fn = _paint_fn()
+    ptrs = [cuda_build.ptr(t) for tgt, src in payloads for t in (src, tgt)]
     err = fn(cuda_build.ptr(claim_s_v_u), cuda_build.ptr(frames_s_v_u_c),
-             cuda_build.ptr(tag), cuda_build.ptr(rbar_v_u_c),
-             cuda_build.ptr(rng), S, V, U, C, int(s_hat), chan_scale(C),
-             float(np.float32(epsilon) ** 2), *ptrs,
+             cuda_build.ptr(depth_f_v_u), cuda_build.ptr(source_mask_v_u),
+             cuda_build.ptr(rbar_v_u_c), S, V, U, C, int(s_hat),
+             f32(slope_factor), chan_scale(C),
+             float(np.float32(epsilon) ** 2), *ptrs, int(tile),
              cuda_build.stream_ptr(dev))
     cuda_build.check(err, lib, "rslf_paint_error_string", "paint")
     propagate_cuda.launches += 1

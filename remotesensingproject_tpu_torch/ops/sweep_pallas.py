@@ -1,5 +1,6 @@
 """Dense row sweep over a uniform grid: the CUDA kernel ``csrc/sweep_rows.cu``
-and its plain version.
+(a launcher of the (pixel, candidate) core ``csrc/sweep_pc.cuh`` under the
+shared-shift position rule) and its plain version.
 
 Counterpart of ``remotesensingproject_tpu/ops/sweep_pallas.py``, whose
 Pallas kernel ``_sweep_kernel`` the CUDA kernel replaces.  Every pixel
@@ -140,20 +141,6 @@ def activity_mask(V: int, U: int, row_active=None, active_v_u=None,
     return mask
 
 
-def block_threads(smem_bytes, device: torch.device) -> int:
-    """The largest power-of-two block, 128 threads at most, whose shared
-    memory ``smem_bytes(threads)`` fits a block's opt-in limit."""
-    limit = torch.cuda.get_device_properties(device) \
-        .shared_memory_per_block_optin
-    threads = 128
-    while threads > 1 and smem_bytes(threads) > limit:
-        threads //= 2
-    if smem_bytes(threads) > limit:
-        raise NotImplementedError("one pixel's samples exceed a block's "
-                                  "shared memory")
-    return threads
-
-
 def sweep_outputs(V: int, S: int, U: int, C: int, with_k_best: bool,
                   device) -> SweepResult:
     """Zeroed kernel outputs (inactive pixels keep the zeros)."""
@@ -168,21 +155,31 @@ def _rows_fn():
     lib = cuda_build.load("sweep_rows")
     fn = lib.rslf_sweep_rows
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P, I, I, I, P, I, P, I, I, F, F, I, I,
+    fn.argtypes = [P, I, I, I, P, I, F, F, I, I, F, F, I,
                    P, P, P, P, P, P, P]
     fn.restype = ctypes.c_int
-    smem = lib.rslf_sweep_rows_smem_bytes
-    smem.argtypes = [I, I, I]
-    smem.restype = ctypes.c_longlong
-    return lib, fn, smem
+    plan = lib.rslf_sweep_rows_plan
+    plan.argtypes = [I, I, I, P]
+    plan.restype = ctypes.c_int
+    return lib, fn, plan
+
+
+def launch_plan(S: int, C: int, with_k_best: bool = False) -> dict:
+    """What the launcher chose for ``S`` samples of ``C`` channels, with or
+    without ``k_best``, on the current card: threads of a block, items of a
+    window, bytes of shared memory a block, resident blocks an SM, SMs.
+    Raises NotImplementedError when no block size fits."""
+    lib, _, plan = _rows_fn()
+    return cuda_build.read_plan(
+        lambda out: plan(S, C, int(with_k_best), out), lib,
+        "rslf_sweep_rows_error_string", "sweep_rows", f"S={S}, C={C}")
 
 
 def sweep_pile_rows(epis_v_s_u_c: torch.Tensor, dmin: float, dmax: float,
                     dim_d: int, s_hat: int, params: DepthParams,
                     with_k_best: bool = False, row_active=None,
                     active_v_u: Optional[torch.Tensor] = None,
-                    work_count: Optional[torch.Tensor] = None
-                    ) -> SweepResult:
+                    work_count: Optional[torch.Tensor] = None) -> SweepResult:
     """Uniform-grid sweep of the pixels of every active row or chunk.
 
     Args:
@@ -202,10 +199,10 @@ def sweep_pile_rows(epis_v_s_u_c: torch.Tensor, dmin: float, dmax: float,
                                   "interpolation only")
     V, S, U, C = epis_v_s_u_c.shape
     dev = epis_v_s_u_c.device
-    dvec = candidate_grid(dmin, dmax, dim_d, dev)
     if dev.type != "cuda":
-        return sweep_rows_plain(epis_v_s_u_c, dvec, s_hat, params,
-                                with_k_best)
+        return sweep_rows_plain(epis_v_s_u_c,
+                                candidate_grid(dmin, dmax, dim_d, dev),
+                                s_hat, params, with_k_best)
 
     if params.fast:
         raise NotImplementedError("fast mode is not ported yet")
@@ -219,16 +216,18 @@ def sweep_pile_rows(epis_v_s_u_c: torch.Tensor, dmin: float, dmax: float,
     if n_act == 0:
         return out
 
-    lib, fn, smem_bytes = _rows_fn()
-    threads = block_threads(lambda t: smem_bytes(S, C, t), dev)
+    # the kernel computes the grid itself, operation for operation as
+    # candidate_grid does
+    lib, fn, _ = _rows_fn()
     a_coef = f32(chan_scale(C) / (params.kernel_h * params.kernel_h))
     p = cuda_build.ptr
-    err = fn(p(epis_v_s_u_c), S, U, C, p(act), n_act, p(dvec), dim_d,
-             int(s_hat), f32(params.slope_factor), a_coef,
-             params.mean_shift_max_iter, threads, p(out.best_score),
+    err = fn(p(epis_v_s_u_c), S, U, C, p(act), n_act, f32(dmin), f32(dmax),
+             dim_d, int(s_hat), f32(params.slope_factor), a_coef,
+             params.mean_shift_max_iter, p(out.best_score),
              p(out.score_mean), p(out.best_depth), p(out.rbar),
              p(out.k_best), p(work_count), cuda_build.stream_ptr(dev))
-    cuda_build.check(err, lib, "rslf_sweep_rows_error_string", "sweep_rows")
+    cuda_build.check(err, lib, "rslf_sweep_rows_error_string", "sweep_rows",
+                     no_fit=f"S={S}, C={C}")
     sweep_pile_rows.launches += 1
     return out
 

@@ -12,8 +12,12 @@ CUDA-event times (medians), at the shapes of ``chip_smoke.py``:
 * at the inputs of the first level-0 pass of the bench scene (C=1): the
   pixel sweep (5 calls), the same with no mean-shift step (its staging
   and bookkeeping alone), then merge, the median (20 calls) and the paint
-  (10 calls, each on a fresh copy of the pass state); the row sweep at
-  the pile's input, every row of that scene (3 calls);
+  (10 calls, each on a fresh copy of the pass state), the paint again on
+  a late pass (a tenth of the open targets and a hundredth of the
+  sources); the row sweep at the pile's input, every row
+  of that scene (3 calls), and on a 64-row slab of the four-band scene
+  with ``k_best`` (C=4, 5 calls) and on a twentieth of that slab's pixels
+  (a late pass);
 * the wall time of the C=1 pipeline (second run) and of the four-band
   pipeline (one run), host clock around work that ends in a synchronise;
 * at the first-pass inputs of levels 1 and 4 of the four-band pyramid: the
@@ -56,6 +60,7 @@ def one(root: str) -> dict:
     from remotesensingproject_tpu_torch.models.fine_to_coarse import \
         FineToCoarse
     from remotesensingproject_tpu_torch.ops import cuda_build
+    from remotesensingproject_tpu_torch.ops.normalize import normalize_volume
     from remotesensingproject_tpu_torch.ops.median_pallas import \
         selective_median_cuda
     from remotesensingproject_tpu_torch.ops.propagation_pallas import \
@@ -88,6 +93,23 @@ def one(root: str) -> dict:
            "sweep_rows_ms": cs.time_ms(
                torch, lambda: sweep_pile_rows(comp.epis, *bounds, D, sh, p),
                reps=3)}
+    # the row sweep on a 64-row slab of the four-band scene, with k_best,
+    # then on a twentieth of its pixels
+    vol4, _ = cs.synthetic_sequence(torch, dev, gains=cs.BAND_GAINS)
+    epis4 = normalize_volume(vol4[:64].contiguous())
+    del vol4
+    g = torch.Generator(device=dev).manual_seed(0)
+    few = torch.rand((64, cs.U), generator=g, device=dev) < 0.05
+
+    def rows4(with_k, act=None):
+        return sweep_pile_rows(epis4, *bounds, D, sh, p, with_k_best=with_k,
+                               active_v_u=act)
+
+    out["sweep_rows_c4_slab_ms"] = cs.time_ms(torch, lambda: rows4(True),
+                                              reps=5)
+    out["sweep_rows_c4_late_ms"] = cs.time_ms(
+        torch, lambda: rows4(False, few), reps=5)
+    del epis4
     good = active & (res.best_score > p.raw_score_threshold)
     zero = torch.zeros((), device=dev)
     depth = torch.where(good, res.best_depth, zero).contiguous()
@@ -109,17 +131,24 @@ def one(root: str) -> dict:
     claim0[sh] = active
     shape = tuple(claim0.shape)
 
-    def fresh():
-        return (claim0.clone(), torch.zeros(shape, device=dev),
+    def fresh(claim=claim0):
+        return (claim.clone(), torch.zeros(shape, device=dev),
                 torch.zeros(shape, device=dev))
 
-    def paint(cl, t0, t1):
-        propagate_cuda(cl, frames, filtered, rbar, mask, sh, p.slope_factor,
-                       p.propagation_epsilon, [(t0, filtered), (t1, conf)])
+    def paint(cl, t0, t1, sources=mask):
+        propagate_cuda(cl, frames, filtered, rbar, sources, sh,
+                       p.slope_factor, p.propagation_epsilon,
+                       [(t0, filtered), (t1, conf)])
 
     out["median_ms"] = cs.time_ms(torch, median, reps=20)
     out["paint_ms"] = cs.time_ms(torch, paint, reps=10, setup=fresh)
-    del comp, st, res, frames, claim0
+    claim_late = claim0 & (torch.rand(shape, generator=g, device=dev) < 0.1)
+    mask_late = mask & (torch.rand(mask.shape, generator=g, device=dev)
+                        < 0.01)
+    out["paint_late_ms"] = cs.time_ms(
+        torch, lambda *a: paint(*a, sources=mask_late), reps=10,
+        setup=lambda: fresh(claim_late))
+    del comp, st, res, frames, claim0, claim_late
     torch.cuda.empty_cache()
 
     def pipeline(v):

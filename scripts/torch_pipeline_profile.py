@@ -31,10 +31,12 @@ from remotesensingproject_tpu_torch.models.fine_to_coarse import \
     FineToCoarse  # noqa: E402
 from remotesensingproject_tpu_torch.ops import cuda_build  # noqa: E402
 
-# the pixel and the tile sweep launch one core, sweep_pc_kernel: with one
-# band the pipeline reaches it through the pixel sweep only, with four
-# bands through the tile sweep only (models/depth2d.py sweep_pass)
-PORTS = {"sweep_pc_kernel": None, "sweep_rows_kernel": "sweep_rows",
+# the three sweeps launch one core, sweep_pc_kernel: the row sweep under
+# the position rule PcRuleRow; the pixel and the tile sweep under
+# PcRulePixel, and with one band the pipeline reaches that one through the
+# pixel sweep only, with four bands through the tile sweep only
+# (models/depth2d.py sweep_pass).  First match wins.
+PORTS = {"PcRuleRow": "sweep_rows", "sweep_pc_kernel": None,
          "selective_median_kernel": "median", "paint_kernel": "paint"}
 
 

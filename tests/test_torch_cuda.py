@@ -9,7 +9,9 @@ and the tile sweep share the (pixel, candidate) core ``csrc/sweep_pc.cuh``;
 their tests cover the sizes its layout must survive: D that is not a
 multiple of a warp, D beyond a window's list, every channel
 instantiation, pixels with no allowed candidate, a list of one pixel and
-lists that do not fill their last group."""
+lists that do not fill their last group.  The row sweep is a third launcher
+of that core (shared-shift positions, two item orders); the paint is driven
+from its sources, in tiles of target columns and runs of frames."""
 
 import numpy as np
 import pytest
@@ -77,6 +79,53 @@ def test_rows_kernel_bitwise(dev, C, with_k, D):
     want = sweep_rows_plain(epis, candidate_grid(-1.0, 1.5, D, dev), S // 2,
                             DepthParams(), with_k_best=with_k)
     _same_sweep(got, want, active, with_k)
+
+
+@pytest.mark.parametrize(
+    "S,U,C,D",
+    [(S, U, C, D) for S, U in ((7, 45), (100, 77))
+     for C, D in ((1, 120), (3, 7), (4, 130), (5, 9))]
+    + [(7, 45, 1, 1030)])      # D beyond a window's list
+def test_rows_core_odd_sizes_bitwise(dev, S, U, C, D):
+    """U not a multiple of a warp, short and long sample columns, every
+    channel instantiation."""
+    epis = _vol(C, S=S, V=5, U=U, seed=S + C).to(dev)
+    V = epis.shape[0]
+    g = torch.Generator().manual_seed(S + U + C + D)
+    active = (torch.rand((V, U), generator=g) < 0.7).to(dev)
+    s_hat = S // 3
+    got = sweep_pile_rows(epis, -1.0, 1.5, D, s_hat, DepthParams(),
+                          with_k_best=True, active_v_u=active)
+    want = sweep_rows_plain(epis, candidate_grid(-1.0, 1.5, D, dev), s_hat,
+                            DepthParams(), with_k_best=True)
+    _same_sweep(got, want, active, True)
+    assert not got.best_depth[~active].any()
+
+
+@pytest.mark.parametrize("n_active", [1, 3, 33, 70])
+def test_rows_core_short_lists_bitwise(dev, n_active):
+    """A late pass: a handful of active pixels scattered over the rows."""
+    epis = _vol(4, S=10, V=6, U=70).to(dev)
+    V, S, U, _ = epis.shape
+    g = torch.Generator().manual_seed(n_active)
+    flat = torch.zeros(V * U, dtype=torch.bool)
+    flat[torch.randperm(V * U, generator=g)[:n_active]] = True
+    active = flat.reshape(V, U).to(dev)
+    got = sweep_pile_rows(epis, -3.0, 4.0, 24, 2, DepthParams(),
+                          with_k_best=True, active_v_u=active)
+    want = sweep_rows_plain(epis, candidate_grid(-3.0, 4.0, 24, dev), 2,
+                            DepthParams(), with_k_best=True)
+    _same_sweep(got, want, active, True)
+    assert not got.k_best.permute(0, 2, 1)[~active].any()
+
+
+@pytest.mark.parametrize("C,with_k", [(1, False), (4, True), (5, True)])
+def test_rows_launch_plan(dev, C, with_k):
+    from remotesensingproject_tpu_torch.ops import sweep_pallas
+
+    plan = sweep_pallas.launch_plan(12, C, with_k)
+    assert plan["threads"] in (32, 64, 128, 256)
+    assert plan["blocks_per_sm"] >= 1
 
 
 @pytest.mark.parametrize("C,masked,with_k", [(1, False, True), (1, True, False),
@@ -210,11 +259,15 @@ def test_core_short_lists_bitwise(dev, n_active):
 
 def test_core_raises_when_no_block_size_fits(dev):
     """2,000 samples a column: 32 threads' columns exceed a block's shared
-    memory, so both launchers raise and launch nothing."""
+    memory, so all three launchers raise and launch nothing."""
     epis = torch.rand((1, 2000, 8, 1), device=dev)
     plane = torch.zeros((1, 8), device=dev)
     active = torch.ones((1, 8), dtype=torch.bool, device=dev)
     n0 = sweep_pile_pixel.launches, sweep_pile_tiles.launches
+    nr = sweep_pile_rows.launches
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        sweep_pile_rows(epis, -1.0, 1.5, 5, 1000, DepthParams())
+    assert nr == sweep_pile_rows.launches
     with pytest.raises(NotImplementedError, match="shared memory"):
         sweep_pile_pixel(epis, -1.0, 1.5, 5, 1000, DepthParams(), active)
     with pytest.raises(NotImplementedError, match="shared memory"):
@@ -257,6 +310,70 @@ def test_paint_kernel_bitwise(dev, C):
     assert not torch.equal(cl_k, claim)
     for a, b in zip(t_k, t_p):
         assert torch.equal(a, b)
+
+
+def _paint_scene(S, V, U, C, seed, p_source=0.5, p_open=0.7, slope=1.0):
+    g = torch.Generator().manual_seed(seed)
+    claim = torch.rand((S, V, U), generator=g) < p_open
+    frames = torch.rand((S, V, U, C), generator=g) * 0.2 + 0.3
+    depth = torch.randint(0, 21, (V, U), generator=g) * 0.25 - 1.0
+    rbar = frames[S // 2] + 0.01
+    sm = torch.rand((V, U), generator=g) < p_source
+    conf = torch.rand((V, U), generator=g)
+    tgts = [torch.rand((S, V, U), generator=g) for _ in range(2)]
+    return claim, frames, depth, rbar, sm, conf, tgts, slope
+
+
+def _paint_both(dev, scene, s_hat, **kw):
+    claim, frames, depth, rbar, sm, conf, tgts, slope = scene
+    claim, frames, depth, rbar, sm, conf = (
+        t.to(dev) for t in (claim, frames, depth, rbar, sm, conf))
+    tgts = [t.to(dev) for t in tgts]
+
+    def run(fn, **kw_):
+        cl, t = claim.clone(), [x.clone() for x in tgts]
+        fn(cl, frames, depth, rbar, sm, s_hat, slope, 0.1,
+           [(t[0], depth), (t[1], conf)], **kw_)
+        return cl, t
+
+    cl_k, t_k = run(propagate_cuda, **kw)
+    cl_p, t_p = run(propagate)
+    assert torch.equal(cl_k, cl_p)
+    for a, b in zip(t_k, t_p):
+        assert torch.equal(a, b)
+    return int((claim & ~cl_k).sum())
+
+
+@pytest.mark.parametrize("tile,S,V,U",
+                         [(0, 7, 6, 45), (32, 7, 6, 45), (7, 7, 6, 45),
+                          (45, 7, 6, 45), (0, 100, 6, 77), (32, 100, 6, 77),
+                          (0, 7, 1500, 45), (32, 7, 900, 45)])
+@pytest.mark.parametrize("C", [1, 3, 4, 5])
+def test_paint_scatter_odd_sizes_bitwise(dev, tile, S, V, U, C):
+    """U not a multiple of a warp, forced tile widths that split the row,
+    every channel instantiation, s_hat at the border and inside, both signs
+    of the slope; with many rows a block takes a run of several frames."""
+    for s_hat, slope in ((0, 1.0), (S // 2, -0.7), (S - 1, 0.3)):
+        scene = _paint_scene(S, V, U, C, seed=S + U + C, slope=slope)
+        assert _paint_both(dev, scene, s_hat, tile=tile) > 0
+
+
+@pytest.mark.parametrize("tile", [0, 16])
+def test_paint_scatter_few_sources_and_none(dev, tile):
+    """A late pass: a handful of sources, few open targets; then no source
+    at all, which must leave everything as it was."""
+    scene = _paint_scene(9, 12, 80, 1, seed=3, p_source=0.01, p_open=0.05)
+    _paint_both(dev, scene, 4, tile=tile)
+    scene = _paint_scene(9, 12, 80, 1, seed=4, p_source=0.0)
+    assert _paint_both(dev, scene, 4, tile=tile) == 0
+
+
+def test_paint_rejects_bad_launch_shape(dev):
+    scene = _paint_scene(3, 2, 16, 1, seed=0)
+    n0 = propagate_cuda.launches
+    with pytest.raises(ValueError, match="tile"):
+        _paint_both(dev, scene, 1, tile=10 ** 6)
+    assert propagate_cuda.launches == n0
 
 
 def test_depth2d_on_card_matches_cpu(dev):

@@ -16,6 +16,8 @@ from remotesensingproject_tpu_torch.models.depth2d import Depth2DComputer
 from remotesensingproject_tpu_torch.models.fine_to_coarse import FineToCoarse
 from remotesensingproject_tpu_torch.models.pile import Depth1DComputerPile
 from remotesensingproject_tpu_torch.ops import (cuda_build,
+                                                propagation_pallas,
+                                                sweep_pallas,
                                                 sweep_pallas_perpixel,
                                                 sweep_pallas_pixel)
 from remotesensingproject_tpu_torch.types import resolve_device
@@ -89,6 +91,9 @@ class _OnCard:
     def is_contiguous(self):
         return True
 
+    def contiguous(self):
+        return self
+
 
 @pytest.mark.parametrize("wrapper", ["pixel", "tiles"])
 def test_sweep_launchers_raise_for_cuda_tensor_never_plain(monkeypatch,
@@ -117,6 +122,43 @@ def test_sweep_launchers_raise_for_cuda_tensor_never_plain(monkeypatch,
                 epis, plane, plane, 5, 2, DepthParams(), active_v_u=mask,
                 pdmin_v_u=plane, pdmax_v_u=plane)
     assert not plain_calls
+
+
+@pytest.mark.parametrize("wrapper", ["rows", "paint"])
+def test_rows_and_paint_raise_for_cuda_tensor_never_plain(monkeypatch,
+                                                          wrapper):
+    """Given a CUDA tensor the row sweep and the paint launch their kernel
+    or raise: here, with no card and no nvcc, they must raise, and must not
+    reach the plain version."""
+    plain_calls = []
+
+    def no_nvcc(name):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(sweep_pallas, "sweep_rows_plain",
+                        lambda *a, **k: plain_calls.append(a))
+    monkeypatch.setattr(propagation_pallas, "propagate",
+                        lambda *a, **k: plain_calls.append(a))
+    monkeypatch.setattr(cuda_build, "load", no_nvcc)
+    n0 = (sweep_pallas.sweep_pile_rows.launches,
+          propagation_pallas.propagate_cuda.launches)
+    plane = _OnCard(torch.zeros((2, 16)))
+    mask = _OnCard(torch.ones((2, 16), dtype=torch.bool))
+    with pytest.raises((RuntimeError, AssertionError)):
+        if wrapper == "rows":
+            sweep_pallas.sweep_pile_rows(
+                _OnCard(torch.zeros((2, 5, 16, 1))), -1.0, 1.5, 5, 2,
+                DepthParams(), with_k_best=True, active_v_u=mask)
+        else:
+            volume = _OnCard(torch.zeros((5, 2, 16)))
+            propagation_pallas.propagate_cuda(
+                _OnCard(torch.ones((5, 2, 16), dtype=torch.bool)),
+                _OnCard(torch.zeros((5, 2, 16, 1))), plane,
+                _OnCard(torch.zeros((2, 16, 1))), mask, 2, 1.0, 0.1,
+                [(volume, plane), (volume, plane)])
+    assert not plain_calls
+    assert n0 == (sweep_pallas.sweep_pile_rows.launches,
+                  propagation_pallas.propagate_cuda.launches)
 
 
 def _write_frames(vol, folder):
