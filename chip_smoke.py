@@ -7,8 +7,11 @@ Phases, one line each (details on further lines):
 
 1. the card's name and power limit; build of every CUDA kernel from
    ``remotesensingproject_tpu_torch/csrc`` (one nvcc each, in parallel),
-   with the registers nvcc reports and the block size, shared memory and
-   resident blocks the launcher of the pixel, tile and row sweeps chose;
+   with the registers, stack frame and spills nvcc reports (the median's
+   SIZE = 5 instantiations must have neither stack frame nor spills), the
+   median's instructions (``cuobjdump -sass``, where the toolkit has it),
+   and the block size, shared memory and resident blocks the launchers of
+   the pixel, tile and row sweeps and the tiles the median's chose;
 2. each kernel against its plain PyTorch version on the card, at the
    inputs of the first level-0 pass of the bench scene (SkysatLR18 [120]:
    S=100, V=540, U=960, D=120, d in [-1, 4]), plus per-pixel bounds and
@@ -16,9 +19,11 @@ Phases, one line each (details on further lines):
    rows of that scene, s_hat=50), with k_best and at C=4 on 64-row slabs,
    and on a late pass's few active pixels; median and paint at C=1 and at
    C=4, the paint also on a late pass's few sources and open targets with
-   a forced tile width.  Every kernel bitwise; each
-   kernel's time, its plain version's, and the least time the card could
-   take (``bound_ms``);
+   a forced tile width, the median also at the level-4 shape of the
+   pyramid (beside an empty kernel's launch, the floor) and at a generic
+   odd and even window size.  Every kernel bitwise; each kernel's time,
+   its plain version's, and the least time the card could take
+   (``bound_ms``);
 3. the full fine-to-coarse pipeline on that scene through
    ``FineToCoarse(...).run(); get_results()``, with every kernel's launch
    count, the wall time, and the quality gate of bench.py: RMSE and P90 of
@@ -48,9 +53,11 @@ of JAX.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -124,6 +131,44 @@ def synthetic_sequence(torch, dev, seed=0, gains=None):
     return vol.contiguous(), disps[owner].astype(np.float32)
 
 
+def device_ms(torch, fn, reps=20):
+    """CUDA-event time a call of ``fn`` over ``reps`` calls queued behind a
+    busy wait, so that the card runs them back to back: the device time of
+    a launch, without the host time of the wrapper.  The wait grows until
+    the host has queued every call before it ends."""
+    fn()
+    cycles = reps * 200_000
+    for _ in range(6):
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        ran_dry = e0.query()  # the wait ended before the calls were queued
+        torch.cuda.synchronize()
+        if not ran_dry:
+            return e0.elapsed_time(e1) / reps
+        cycles *= 4
+    raise RuntimeError("device_ms: the host never got ahead of the card")
+
+
+def launch_floor_ms(torch, cuda_build, dev):
+    """``device_ms`` of an empty kernel (``csrc/median.cu``)."""
+    lib = cuda_build.load("median")
+    fn = lib.rslf_launch_floor
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch():
+        if fn(cuda_build.stream_ptr(dev)) != 0:
+            raise RuntimeError("empty kernel launch failed")
+
+    return device_ms(torch, launch, reps=50)
+
+
 def time_ms(torch, fn, reps=3, setup=None):
     """Median CUDA-event time of ``fn(*setup())`` over ``reps`` runs."""
     times = []
@@ -145,16 +190,60 @@ def bound(nbytes, nflops):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+def kernel_name(mangled: str):
+    """``name<int args>`` of a mangled kernel name, None if none is in it
+    (each instantiation apart: ``selective_median_kernel<5,1>``)."""
+    m = re.search(r"\d([a-z_]+_kernel)((?:ILi-?\d+E)?(?:Li-?\d+E)*)",
+                  mangled)
+    if not m:
+        return None
+    args = re.findall(r"Li(-?\d+)E", m.group(2))
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
 def ptxas_summary(log: str):
-    """(kernel, registers line) pairs of nvcc's -Xptxas -v output."""
+    """(kernel, registers or stack-frame line) pairs of nvcc's -Xptxas -v
+    output."""
     out, name = [], None
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry .*?\d([a-z_]+_kernel)(ILi(\d+)E)?",
-                      ln)
-        if m:
-            name = m.group(1) + (f"<{m.group(3)}>" if m.group(3) else "")
+        if "Compiling entry" in ln:
+            name = kernel_name(ln)
         elif name and ("registers" in ln or "spill" in ln):
             out.append((name, ln.split(":", 1)[-1].strip()))
+    return out
+
+
+def sass_summary(lib_path, key="selective_median_kernel"):
+    """{kernel: (instructions, FMNMX, instructions from the last barrier to
+    the last exit)} of the functions of a built library whose name holds
+    ``key``, NOPs left out (``cuobjdump -sass``); {} where the toolkit has
+    no cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=120).stdout
+    ops, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = kernel_name(ln) if key in ln else None
+            if name:
+                ops[name] = []
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                     ln)
+        if name and m and not m.group(2).startswith("NOP"):
+            ops[name].append((m.group(2), bool(m.group(1))))
+    out = {}
+    for k, v in ops.items():
+        names = [op for op, _ in v]
+        bar = max((i for i, op in enumerate(names)
+                   if op.startswith("BAR.SYNC")), default=0)
+        end = max((i for i, (op, pred) in enumerate(v)
+                   if op == "EXIT" and not pred), default=len(v))
+        out[k] = (len(v), sum(op.startswith("FMNMX") for op in names),
+                  end - bar)
     return out
 
 
@@ -176,6 +265,7 @@ def main() -> int:
         from remotesensingproject_tpu_torch.ops import cuda_build
         from remotesensingproject_tpu_torch.ops.median import \
             selective_median
+        from remotesensingproject_tpu_torch.ops import median_pallas
         from remotesensingproject_tpu_torch.ops.median_pallas import \
             selective_median_cuda
         from remotesensingproject_tpu_torch.ops.propagation import propagate
@@ -195,6 +285,8 @@ def main() -> int:
             edge_confidence_volume
         from remotesensingproject_tpu_torch.ops.normalize import \
             normalize_volume
+        from remotesensingproject_tpu_torch.ops.pyramid import \
+            cv_resize_shape
         from remotesensingproject_tpu_torch.types import (f32,
                                                           round_half_away)
         from remotesensingproject_tpu_torch.utils.io import (
@@ -221,9 +313,24 @@ def main() -> int:
     build_s = cuda_build.build()
     print(f"phase 1 build: {time.perf_counter() - t0:.2f}s wall, per kernel "
           + ", ".join(f"{k} {v:.2f}s" for k, v in build_s.items()))
+    failures = []
+    median5 = []
     for name in cuda_build.KERNELS:
         for fn, ln in ptxas_summary(cuda_build.build_log(name) or ""):
             print(f"  ptxas {name} {fn}: {ln}")
+            if fn.startswith("selective_median_kernel<5,") and "stack" in ln:
+                median5.append(fn)
+                if re.findall(r"(\d+) bytes", ln) != ["0", "0", "0"]:
+                    failures.append(f"{fn}: {ln}")
+    if not median5:
+        failures.append("no ptxas report of the median's SIZE = 5 kernels")
+    for fn, (n_ins, n_mm, n_after) in sass_summary(
+            cuda_build.library_path("median")).items():
+        print(f"  sass median {fn}: {n_ins} instructions, {n_mm} FMNMX, "
+              f"{n_after} from the last barrier to the exit")
+    for size_, C_ in ((5, 1), (5, 4), (7, 1), (4, 1), (17, 64), (5, 400)):
+        print(f"  launch plan median size={size_} C={C_}: "
+              f"{median_pallas.launch_plan(size_, C_)}")
     print(f"  launch plan sweep_pixel S={S} C=1: "
           f"{sweep_pallas_pixel.launch_plan(S, 1)}")
     print(f"  launch plan sweep_tiles S={S} C=4: "
@@ -231,6 +338,9 @@ def main() -> int:
     for Cr, with_k in ((1, False), (4, True)):
         print(f"  launch plan sweep_rows S={S} C={Cr} k_best={with_k}: "
               f"{sweep_pallas.launch_plan(S, Cr, with_k)}")
+    if failures:
+        print("phase 1 FAILED: " + "; ".join(failures))
+        return 1
 
     # ---- phase 2: kernels vs plain versions at level-0 pass-1 inputs ----
     params = DEFAULT_PARAMS
@@ -244,7 +354,6 @@ def main() -> int:
     n_act = int(active.sum())
     print(f"phase 2 inputs: level 0, s_hat={s_hat}, {n_act} active px")
     records = {}
-    failures = []
 
     def check_same(tag, got, want, mask):
         """Bitwise agreement of two SweepResults at the pixels of mask."""
@@ -343,27 +452,33 @@ def main() -> int:
     mask = (state.ce_mask[s_hat] & ~(active & ~good)).contiguous()
     frame = frames[s_hat]
 
-    def check_median(tag, src, fr, m):
-        got = selective_median_cuda(src, fr, m, params.median_filter_size,
-                                    params.median_filter_epsilon)
+    def check_median(tag, src, fr, m, size=params.median_filter_size):
+        eps = params.median_filter_epsilon
+
+        def run():
+            return selective_median_cuda(src, fr, m, size, eps)
+
+        got = run()
         out = {}
         plain = time_ms(torch, lambda: out.setdefault("want", selective_median(
-            src, fr, m, params.median_filter_size,
-            params.median_filter_epsilon)), reps=1)
+            src, fr, m, size, eps)), reps=1)
         want = out["want"]
-        if not torch.equal(got, want):
+        same = torch.equal(got, want)
+        if not same:
             failures.append(f"median {tag} not bitwise equal")
         err = float((got - want).abs().max())
-        ms = time_ms(torch, lambda: selective_median_cuda(
-            src, fr, m, params.median_filter_size,
-            params.median_filter_epsilon), reps=5)
+        ms = device_ms(torch, run)
+        call_ms = time_ms(torch, run, reps=5)
         Vm, Um, Cm = fr.shape
-        taps = params.median_filter_size ** 2
         bms, by = bound(Vm * Um * (4 + 1 + 4 * Cm + 4),
-                        int(m.sum()) * taps * (3 * Cm + 2))
-        print(f"  median {tag}: bitwise {torch.equal(got, want)}, kernel "
-              f"{ms:.3f} ms, plain {plain:.1f} ms, bound {bms:.4f} ms by "
-              f"{by}")
+                        int(m.sum()) * size ** 2 * (3 * Cm + 2))
+        plan = median_pallas.launch_plan(size, Cm)
+        print(f"  median {tag}: bitwise {same}, {Vm}x{Um} px, size {size}, "
+              f"tiles {plan['tile_v']}x{plan['tile_u']} of <"
+              f"{plan['size_template']},{plan['channel_template']}>, kernel "
+              f"{ms:.4f} ms a launch back to back ({call_ms:.4f} ms one "
+              f"call on the host clock, the wrapper included), plain "
+              f"{plain:.1f} ms, bound {bms:.3g} ms by {by}")
         return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                     bound_by=by), got
 
@@ -373,6 +488,20 @@ def main() -> int:
     frames4 = epis4.permute(1, 0, 2, 3).contiguous()
     check_median("C=4 (64 rows)", depth[:64].contiguous(),
                  frames4[s_hat].contiguous(), mask[:64].contiguous())
+    # the shape of level 4 of the pyramid (a launch of a few thousand px),
+    # cut from the level-0 inputs, beside an empty kernel's launch
+    v4, u4 = V, U
+    for _ in range(4):
+        v4, u4 = cv_resize_shape(v4), cv_resize_shape(u4)
+    small4 = [x[:v4, :u4].contiguous() for x in (depth, frame, mask)]
+    rec4, _ = check_median("level-4 shape", *small4)
+    floor = launch_floor_ms(torch, cuda_build, dev)
+    print(f"  launch floor: an empty kernel {floor:.4f} ms a launch back to "
+          f"back; the median at the level-4 shape {rec4['ms'] / floor:.2f}x "
+          f"that")
+    # the generic instantiation, at an odd and an even window size
+    check_median("C=1 generic odd size", depth, frame, mask, size=7)
+    check_median("C=1 generic even size", depth, frame, mask, size=4)
 
     # the paint on fresh copies of the pass state
     conf = (state.ce[s_hat] * torch.abs(res.best_score - res.score_mean))

@@ -32,11 +32,11 @@ def _sort_taps(taps):
     return taps
 
 
-def _pad_vu(x: torch.Tensor, w: int) -> torch.Tensor:
-    """Zero-pad the leading two (v, u) axes by w."""
+def _pad_vu(x: torch.Tensor, w: int, w_end: int) -> torch.Tensor:
+    """Zero-pad the leading two (v, u) axes by w before and w_end after."""
     if x.dim() == 2:
-        return F.pad(x, (w, w, w, w))
-    return F.pad(x, (0, 0, w, w, w, w))
+        return F.pad(x, (w, w_end, w, w_end))
+    return F.pad(x, (0, 0, w, w_end, w, w_end))
 
 
 def selective_median(src_v_u: torch.Tensor, frame_v_u_c: torch.Tensor,
@@ -54,10 +54,13 @@ def selective_median(src_v_u: torch.Tensor, frame_v_u_c: torch.Tensor,
       ``[V, U]`` filtered values; 0 where the mask is unset.
     """
     V, U = src_v_u.shape
+    # window rows (and columns) v - w .. v - w + size - 1: one more after
+    # the centre than before it at an even size
     w = (size - 1) // 2
-    srcp = _pad_vu(src_v_u, w)
-    maskp = _pad_vu(mask_v_u.to(DTYPE), w)
-    framep = _pad_vu(frame_v_u_c, w)
+    pads = (w, size - 1 - w)
+    srcp = _pad_vu(src_v_u, *pads)
+    maskp = _pad_vu(mask_v_u.to(DTYPE), *pads)
+    framep = _pad_vu(frame_v_u_c, *pads)
 
     sortable = []
     n = torch.zeros((V, U), dtype=torch.int64, device=src_v_u.device)

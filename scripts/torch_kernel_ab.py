@@ -11,7 +11,11 @@ CUDA-event times (medians), at the shapes of ``chip_smoke.py``:
 
 * at the inputs of the first level-0 pass of the bench scene (C=1): the
   pixel sweep (5 calls), the same with no mean-shift step (its staging
-  and bookkeeping alone), then merge, the median (20 calls) and the paint
+  and bookkeeping alone), then merge, the median (20 calls; also on a
+  64-row slab of the four-band scene, C=4, and at the level-4 shape of the
+  pyramid cut from the level-0 inputs, each both as one call on the host
+  clock and as the device time a launch back to back, ``device_ms``, with
+  an empty kernel's launch beside them where the tree has one) and the paint
   (10 calls, each on a fresh copy of the pass state), the paint again on
   a late pass (a tenth of the open targets and a hundredth of the
   sources); the row sweep at the pile's input, every row
@@ -23,9 +27,11 @@ CUDA-event times (medians), at the shapes of ``chip_smoke.py``:
 * at the first-pass inputs of levels 1 and 4 of the four-band pyramid: the
   tile sweep in the tile mode (5 and 20 calls) and, at level 1, in the
   pixel mode (3 calls);
-* the registers nvcc reports for each kernel.
+* the registers nvcc reports for each kernel, and the median's SASS
+  instruction and FMNMX counts.
 
-List the roots as A B B A to compare two trees within one call.
+Each JSON line goes to standard output, so a chip call's own log holds the
+numbers.  List the roots as A B B A to compare two trees within one call.
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ def one(root: str) -> dict:
         FineToCoarse
     from remotesensingproject_tpu_torch.ops import cuda_build
     from remotesensingproject_tpu_torch.ops.normalize import normalize_volume
+    from remotesensingproject_tpu_torch.ops.pyramid import cv_resize_shape
     from remotesensingproject_tpu_torch.ops.median_pallas import \
         selective_median_cuda
     from remotesensingproject_tpu_torch.ops.propagation_pallas import \
@@ -109,6 +116,7 @@ def one(root: str) -> dict:
                                               reps=5)
     out["sweep_rows_c4_late_ms"] = cs.time_ms(
         torch, lambda: rows4(False, few), reps=5)
+    frame4 = epis4[:, sh].contiguous()
     del epis4
     good = active & (res.best_score > p.raw_score_threshold)
     zero = torch.zeros((), device=dev)
@@ -141,6 +149,25 @@ def one(root: str) -> dict:
                        [(t0, filtered), (t1, conf)])
 
     out["median_ms"] = cs.time_ms(torch, median, reps=20)
+    v4, u4 = cs.V, cs.U
+    for _ in range(4):
+        v4, u4 = cv_resize_shape(v4), cv_resize_shape(u4)
+    cases = {"": (depth, frame, mask),
+             "_c4_slab": (depth[:64].contiguous(), frame4,
+                          mask[:64].contiguous()),
+             "_level4": [x[:v4, :u4].contiguous()
+                         for x in (depth, frame, mask)]}
+    for tag, (dm, fm, mm) in cases.items():
+        def med(dm=dm, fm=fm, mm=mm):
+            return selective_median_cuda(dm, fm, mm, p.median_filter_size,
+                                         p.median_filter_epsilon)
+        if tag:
+            out[f"median{tag}_ms"] = cs.time_ms(torch, med, reps=20)
+        out[f"median{tag}_device_ms"] = cs.device_ms(torch, med)
+    if hasattr(cuda_build.load("median"), "rslf_launch_floor"):
+        out["empty_kernel_device_ms"] = cs.launch_floor_ms(torch, cuda_build,
+                                                           dev)
+    del frame4
     out["paint_ms"] = cs.time_ms(torch, paint, reps=10, setup=fresh)
     claim_late = claim0 & (torch.rand(shape, generator=g, device=dev) < 0.1)
     mask_late = mask & (torch.rand(mask.shape, generator=g, device=dev)
@@ -190,6 +217,7 @@ def one(root: str) -> dict:
                     for fn, ln in cs.ptxas_summary(cuda_build.build_log(n)
                                                    or "")
                     if "registers" in ln}
+    out["sass_median"] = cs.sass_summary(cuda_build.library_path("median"))
     return out
 
 

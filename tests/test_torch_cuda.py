@@ -11,7 +11,11 @@ multiple of a warp, D beyond a window's list, every channel
 instantiation, pixels with no allowed candidate, a list of one pixel and
 lists that do not fill their last group.  The row sweep is a third launcher
 of that core (shared-shift positions, two item orders); the paint is driven
-from its sources, in tiles of target columns and runs of frames."""
+from its sources, in tiles of target columns and runs of frames.  The
+median works on tiles staged in shared memory: its tests take every
+instantiation (sizes 3 and 5 at C = 1, 3, 4; the generic size; channels in
+stages), images smaller than a tile or a window, eps <= 0 and an empty
+mask."""
 
 import numpy as np
 import pytest
@@ -22,7 +26,7 @@ from remotesensingproject_tpu_torch.config import DepthParams
 from remotesensingproject_tpu_torch.models.depth2d import Depth2DComputer
 from remotesensingproject_tpu_torch.ops.median import selective_median
 from remotesensingproject_tpu_torch.ops.median_pallas import (
-    selective_median_cuda)
+    launch_plan as median_launch_plan, selective_median_cuda)
 from remotesensingproject_tpu_torch.ops.propagation import propagate
 from remotesensingproject_tpu_torch.ops.propagation_pallas import (
     propagate_cuda)
@@ -276,14 +280,82 @@ def test_core_raises_when_no_block_size_fits(dev):
     assert n0 == (sweep_pile_pixel.launches, sweep_pile_tiles.launches)
 
 
-@pytest.mark.parametrize("C", [1, 3, 4, 6])
-def test_median_kernel_bitwise(dev, C):
-    g = torch.Generator().manual_seed(C)
-    src = (torch.randint(-8, 17, (40, 70), generator=g) / 8.0).to(dev)
-    frame = (torch.rand((40, 70, C), generator=g) * 0.3 + 0.3).to(dev)
-    mask = (torch.rand((40, 70), generator=g) < 0.6).to(dev)
-    got = selective_median_cuda(src, frame, mask, 5, 0.1)
-    assert torch.equal(got, selective_median(src, frame, mask, 5, 0.1))
+def _median_inputs(dev, V, U, C, seed, p_mask=0.6):
+    g = torch.Generator().manual_seed(seed)
+    src = (torch.randint(-8, 17, (V, U), generator=g) / 8.0).to(dev)
+    frame = (torch.rand((V, U, C), generator=g) * 0.3 + 0.3).to(dev)
+    mask = (torch.rand((V, U), generator=g) < p_mask).to(dev)
+    return src, frame, mask
+
+
+def _median_same(dev, src, frame, mask, size, eps):
+    n0 = selective_median_cuda.launches
+    got = selective_median_cuda(src, frame, mask, size, eps)
+    torch.cuda.synchronize()
+    assert selective_median_cuda.launches == n0 + 1
+    want = selective_median(src, frame, mask, size, eps)
+    assert torch.equal(got, want)
+    return got
+
+
+# 17 x 30 is level 5 of the bench pyramid, 48 x 96 data/strips16; sizes 3
+# and 5 run their own instantiations, 4, 9 and 17 the generic one; C = 7
+# the staged channels
+@pytest.mark.parametrize("V,U", [(17, 30), (48, 96), (70, 129)])
+@pytest.mark.parametrize("C", [1, 3, 4, 7])
+@pytest.mark.parametrize("size", [3, 4, 5, 9, 17])
+def test_median_kernel_bitwise(dev, size, C, V, U):
+    src, frame, mask = _median_inputs(dev, V, U, C, size * 100 + C + V)
+    # at eps 2 every colour test passes: the halo's mask alone decides
+    for eps in (0.1, 2.0):
+        _median_same(dev, src, frame, mask, size, eps)
+
+
+@pytest.mark.parametrize("eps", [0.0, -0.5])
+@pytest.mark.parametrize("size", [3, 4, 5])
+def test_median_kernel_eps_not_positive(dev, size, eps):
+    src, frame, mask = _median_inputs(dev, 48, 96, 3, size)
+    got = _median_same(dev, src, frame, mask, size, eps)
+    assert bool(torch.isinf(got[mask]).all())
+
+
+@pytest.mark.parametrize("size", [3, 4, 5])
+def test_median_kernel_all_false_mask(dev, size):
+    src, frame, mask = _median_inputs(dev, 48, 96, 4, size, p_mask=0.0)
+    got = _median_same(dev, src, frame, mask, size, 0.1)
+    assert not bool(got.any())
+
+
+@pytest.mark.parametrize("size,C", [(17, 64), (5, 400), (3, 300)])
+def test_median_kernel_large_c(dev, size, C):
+    """Shorter tiles (size 17, C = 64), then channels in stages."""
+    plan = median_launch_plan(size, C)
+    assert plan["tile_v"] < 8 or plan["channels_per_stage"] < C
+    src, frame, mask = _median_inputs(dev, 19, 70, C, C)
+    _median_same(dev, src, frame, mask, size, 0.5)
+
+
+def test_median_kernel_unaligned_four_channels(dev):
+    """A C = 4 frame off a 16-byte boundary takes the generic channels."""
+    src, frame, mask = _median_inputs(dev, 40, 70, 4, 3)
+    base = torch.zeros(40 * 70 * 4 + 1, device=dev)
+    odd = base[1:].view(40, 70, 4)
+    odd.copy_(frame)
+    _median_same(dev, src, odd, mask, 5, 0.1)
+
+
+def test_median_launch_plan(dev):
+    p5 = median_launch_plan(5, 1)
+    assert (p5["threads"], p5["tile_v"], p5["tile_u"]) == (256, 8, 32)
+    assert (p5["size_template"], p5["channel_template"]) == (5, 1)
+    assert median_launch_plan(5, 4)["channel_template"] == 4
+    assert median_launch_plan(5, 7)["channel_template"] == 0
+    assert median_launch_plan(4, 1)["size_template"] == 0
+    for bad in ((0, 1), (18, 1), (5, 0)):
+        with pytest.raises(RuntimeError):
+            median_launch_plan(*bad)
+    with pytest.raises(NotImplementedError):
+        selective_median_cuda(*_median_inputs(dev, 8, 8, 1, 0), 18, 0.1)
 
 
 @pytest.mark.parametrize("C", [1, 3, 4, 6])

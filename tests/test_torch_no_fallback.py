@@ -15,7 +15,7 @@ from remotesensingproject_tpu_torch.config import DepthParams
 from remotesensingproject_tpu_torch.models.depth2d import Depth2DComputer
 from remotesensingproject_tpu_torch.models.fine_to_coarse import FineToCoarse
 from remotesensingproject_tpu_torch.models.pile import Depth1DComputerPile
-from remotesensingproject_tpu_torch.ops import (cuda_build,
+from remotesensingproject_tpu_torch.ops import (cuda_build, median_pallas,
                                                 propagation_pallas,
                                                 sweep_pallas,
                                                 sweep_pallas_perpixel,
@@ -159,6 +159,36 @@ def test_rows_and_paint_raise_for_cuda_tensor_never_plain(monkeypatch,
     assert not plain_calls
     assert n0 == (sweep_pallas.sweep_pile_rows.launches,
                   propagation_pallas.propagate_cuda.launches)
+
+
+def test_median_raises_for_cuda_tensor_never_plain(monkeypatch):
+    """Given a CUDA tensor the median launches its kernel or raises: here,
+    with no card and no nvcc, it must raise, and must not reach the plain
+    version; operands of the wrong shape or size raise first."""
+    plain_calls = []
+
+    def no_nvcc(name):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(median_pallas, "selective_median",
+                        lambda *a, **k: plain_calls.append(a))
+    monkeypatch.setattr(cuda_build, "load", no_nvcc)
+    n0 = median_pallas.selective_median_cuda.launches
+    plane = _OnCard(torch.zeros((2, 16)))
+    mask = _OnCard(torch.ones((2, 16), dtype=torch.bool))
+    frame = _OnCard(torch.zeros((2, 16, 1)))
+    with pytest.raises((RuntimeError, AssertionError)):
+        median_pallas.selective_median_cuda(plane, frame, mask, 5, 0.1)
+    with pytest.raises(ValueError, match="must be"):
+        median_pallas.selective_median_cuda(
+            plane, _OnCard(torch.zeros((2, 15, 1))), mask, 5, 0.1)
+    with pytest.raises(ValueError, match="must be"):
+        median_pallas.selective_median_cuda(
+            plane, _OnCard(torch.zeros((2, 16, 0))), mask, 5, 0.1)
+    with pytest.raises(NotImplementedError, match="1..17"):
+        median_pallas.selective_median_cuda(plane, frame, mask, 18, 0.1)
+    assert not plain_calls
+    assert n0 == median_pallas.selective_median_cuda.launches
 
 
 def _write_frames(vol, folder):
