@@ -15,15 +15,21 @@ Phases, one line each (details on further lines):
 2. each kernel against its plain PyTorch version on the card, at the
    inputs of the first level-0 pass of the bench scene (SkysatLR18 [120]:
    S=100, V=540, U=960, D=120, d in [-1, 4]), plus per-pixel bounds and
-   a C=3 slab for the pixel sweep; the row sweep at the pile's input (all
-   rows of that scene, s_hat=50), with k_best and at C=4 on 64-row slabs,
+   a C=3 slab for the pixel sweep, and its new modes there: k_best (line
+   mode's input), the fast cap (against the plain sweep with 5 mean-shift
+   steps), the nearest rule with uniform and per-pixel bounds; the tile
+   sweep's nearest rule at C=4 on a 64-row slab; the row sweep at the
+   pile's input (all rows of that scene, s_hat=50), with k_best and at C=4
+   on 64-row slabs,
    and on a late pass's few active pixels; median and paint at C=1 and at
    C=4, the paint also on a late pass's few sources and open targets with
    a forced tile width, the median also at the level-4 shape of the
    pyramid (beside an empty kernel's launch, the floor) and at a generic
-   odd and even window size.  Every kernel bitwise; each kernel's time,
-   its plain version's, and the least time the card could take
-   (``bound_ms``);
+   odd and even window size; the paint with three payloads (line mode:
+   depth, disp_conf, line_conf; sources C_l > threshold) at a first and a
+   late pass, beside the line confidence's own time.  Every kernel bitwise;
+   each kernel's time, its plain version's, and the least time the card
+   could take (``bound_ms``);
 3. the full fine-to-coarse pipeline on that scene through
    ``FineToCoarse(...).run(); get_results()``, with every kernel's launch
    count, the wall time, and the quality gate of bench.py: RMSE and P90 of
@@ -41,11 +47,21 @@ Phases, one line each (details on further lines):
    mode, at the first-pass inputs of level 1 of phase 5's pyramid (k_best
    on a 64-row slab), and in the tile mode at those of level 4 (a coarse
    level of a few thousand pixels), bitwise;
-7. a ``{"kernels": [...]}`` JSON line, the card line again, and last
+7. line mode: ``FineToCoarse`` with ``score_version="line"`` on the bench
+   scene, with wall time, launches, peak memory and RMSE / P90 beside the
+   JAX package's (BENCH_LINE.json), and bench.py's line gate (RMSE within
+   0.5 px of the anchor);
+8. fast mode: ``FineToCoarse`` with ``fast=True`` on the bench scene, with
+   phase 3's gate, beside the JAX package's figures (BENCH_FASTMODE.json);
+9. nearest interpolation (no anchor: finite maps, errors printed): the pile
+   on the bench scene (pixel sweep), on data/strips16 and on the four-band
+   scene (tile sweep), and one ``FineToCoarse`` run on the bench scene;
+10. a ``{"kernels": [...]}`` JSON line (the new modes of a kernel under
+   ``modes``), the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
-Launch counts are set to 0 just before each main path (phases 3, 4, 5)
-and read just after; each path fails if one of its kernels never
+Launch counts are set to 0 just before each main path (phases 3, 4, 5,
+7, 8, 9) and read just after; each path fails if one of its kernels never
 launched.  Exits non-zero, printing no result, without a CUDA device,
 without the package beside it, or when any phase fails.  Imports nothing
 of JAX.
@@ -54,6 +70,7 @@ of JAX.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -73,6 +90,12 @@ MARGIN_PX = 0.10
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 SWEEP_OUTS = ("best_score", "score_mean", "best_depth", "rbar", "k_best")
+# the JAX package's figures on the bench scene (BENCH_LINE.json,
+# BENCH_FASTMODE.json): RMSE, P90 px
+JAX_LINE = (1.4198, 3.4468)
+JAX_FAST = (1.3088, 1.2649)
+# bench.py's gate for the score versions other than edge
+LINE_MARGIN_PX = 0.5
 # per-layer gains of the four bands (blue, green, red, near-infrared) of
 # the four-band scene; fixed, so the scene keeps the bench scene's draws
 BAND_GAINS = np.array([[1.00, 0.85, 0.70, 0.95], [0.60, 0.75, 0.90, 1.00],
@@ -191,13 +214,18 @@ def bound(nbytes, nflops):
 
 
 def kernel_name(mangled: str):
-    """``name<int args>`` of a mangled kernel name, None if none is in it
-    (each instantiation apart: ``selective_median_kernel<5,1>``)."""
+    """``name<int args[,position rule]>`` of a mangled kernel name, None if
+    none is in it (each instantiation apart: ``selective_median_kernel<5,1>``,
+    ``sweep_pc_kernel<1,PcRuleNearest>``)."""
     m = re.search(r"\d([a-z_]+_kernel)((?:ILi-?\d+E)?(?:Li-?\d+E)*)",
                   mangled)
     if not m:
         return None
     args = re.findall(r"Li(-?\d+)E", m.group(2))
+    # a type argument: its length, then its name (``11PcRulePixel``)
+    rest = mangled[m.end():]
+    args += [rest[t.start(2):t.start(2) + int(t.group(1))]
+             for t in re.finditer(r"(\d+)(PcRule)", rest)]
     return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
@@ -256,8 +284,8 @@ def main() -> int:
     sys.path.insert(0, HERE)
     try:
         from remotesensingproject_tpu_torch.config import DEFAULT_PARAMS
-        from remotesensingproject_tpu_torch.models.depth2d import \
-            Depth2DComputer
+        from remotesensingproject_tpu_torch.models.depth2d import (
+            Depth2DComputer, _line_confidence)
         from remotesensingproject_tpu_torch.models.fine_to_coarse import \
             FineToCoarse
         from remotesensingproject_tpu_torch.models.pile import \
@@ -331,10 +359,14 @@ def main() -> int:
     for size_, C_ in ((5, 1), (5, 4), (7, 1), (4, 1), (17, 64), (5, 400)):
         print(f"  launch plan median size={size_} C={C_}: "
               f"{median_pallas.launch_plan(size_, C_)}")
-    print(f"  launch plan sweep_pixel S={S} C=1: "
-          f"{sweep_pallas_pixel.launch_plan(S, 1)}")
+    for with_k, nearest in ((False, False), (True, False), (False, True)):
+        print(f"  launch plan sweep_pixel S={S} C=1 k_best={with_k} "
+              f"nearest={nearest}: "
+              f"{sweep_pallas_pixel.launch_plan(S, 1, with_k, nearest)}")
     print(f"  launch plan sweep_tiles S={S} C=4: "
           f"{sweep_pallas_perpixel.launch_plan(S, 4)}")
+    print(f"  launch plan sweep_tiles S={S} C=4 nearest pixel mode: "
+          f"{sweep_pallas_perpixel.launch_plan(S, 4, False, False, True)}")
     for Cr, with_k in ((1, False), (4, True)):
         print(f"  launch plan sweep_rows S={S} C={Cr} k_best={with_k}: "
               f"{sweep_pallas.launch_plan(S, Cr, with_k)}")
@@ -344,6 +376,9 @@ def main() -> int:
 
     # ---- phase 2: kernels vs plain versions at level-0 pass-1 inputs ----
     params = DEFAULT_PARAMS
+    line_params = dataclasses.replace(params, score_version="line")
+    fast_params = dataclasses.replace(params, fast=True)
+    nearest_params = dataclasses.replace(params, interpolation="nearest")
     vol, gt_s_u = synthetic_sequence(torch, dev)
     comp = Depth2DComputer(vol, DMIN, DMAX, D, params=params, device=dev)
     epis = comp.epis
@@ -392,17 +427,22 @@ def main() -> int:
         return dict(max_abs_err=err, ms=ms, plain_ms=t_plain, bound_ms=bms,
                     bound_by=by), got
 
-    def check_pixel(tag, ep, act, lo, hi, per_pixel):
+    def check_pixel(tag, ep, act, lo, hi, per_pixel, p=params, plain_p=None,
+                    with_k=False):
+        """The pixel sweep under params ``p`` against the plain sweep under
+        ``plain_p`` (default ``p``)."""
         Vs, Ss, Us, Cs = ep.shape
         kw = dict(dmin_v_u=lo, dmax_v_u=hi) if per_pixel else {}
         nbytes = (ep.numel() + int(act.sum()) + Vs * Us * (3 + Cs)
-                  + (2 * Vs * Us if per_pixel else 0)) * 4
+                  + (2 * Vs * Us if per_pixel else 0)
+                  + (Vs * Ss * Us if with_k else 0)) * 4
         return check_kernel(
             f"sweep_pixel {tag}",
-            lambda w: sweep_pile_pixel(ep, DMIN, DMAX, D, s_hat, params, act,
-                                       work_count=w, **kw),
-            lambda: sweep_pile(ep, lo, hi, D, s_hat, params), act, nbytes,
-            Cs)
+            lambda w: sweep_pile_pixel(ep, DMIN, DMAX, D, s_hat, p, act,
+                                       with_k_best=with_k, work_count=w,
+                                       **kw),
+            lambda: sweep_pile(ep, lo, hi, D, s_hat, plain_p or p, with_k),
+            act, nbytes, Cs)
 
     def check_rows(tag, ep, with_k, act=None):
         Vs, Ss, Us, Cs = ep.shape
@@ -431,6 +471,23 @@ def main() -> int:
     epis3 = (epis[:64] * rgb_gain).contiguous()
     check_pixel("per-pixel C=3 (64 rows)", epis3, active[:64].contiguous(),
                 lo[:64].contiguous(), hi[:64].contiguous(), True)
+    # the new modes, each bitwise against its plain version: line mode's
+    # k_best, the fast cap (the plain sweep with 5 mean-shift steps), the
+    # nearest rule with uniform and per-pixel bounds
+    modes = {k: {} for k in ("sweep_pixel", "sweep_tiles", "paint")}
+    modes["sweep_pixel"]["k_best"], res_k = check_pixel(
+        "uniform C=1 k_best", epis, active, full(DMIN), full(DMAX), False,
+        with_k=True)
+    modes["sweep_pixel"]["fast"], _ = check_pixel(
+        "uniform C=1 fast", epis, active, full(DMIN), full(DMAX), False,
+        p=fast_params,
+        plain_p=dataclasses.replace(params, mean_shift_max_iter=5))
+    modes["sweep_pixel"]["nearest uniform"], _ = check_pixel(
+        "uniform C=1 nearest", epis, active, full(DMIN), full(DMAX), False,
+        p=nearest_params)
+    modes["sweep_pixel"]["nearest per-pixel"], _ = check_pixel(
+        "per-pixel C=1 nearest", epis, active, lo, hi, True,
+        p=nearest_params)
 
     # the row sweep: the pile's input (every row), then slabs
     vol4, _ = synthetic_sequence(torch, dev, gains=BAND_GAINS)
@@ -444,6 +501,18 @@ def main() -> int:
     few = torch.rand((64, U), generator=g, device=dev) < 0.05
     check_rows(f"C=4 late pass ({int(few.sum())} px of 64 rows)", epis4,
                False, few)
+    # the tile sweep's nearest rule at C=4: each pixel's own grid (pixel
+    # mode), as the passes take it
+    act4, lo4, hi4 = (x[:64].contiguous() for x in (active, lo, hi))
+    modes["sweep_tiles"]["nearest pixel mode C=4 (64 rows)"] = check_kernel(
+        "sweep_tiles nearest pixel mode C=4 (64 rows)",
+        lambda w: sweep_pile_tiles(epis4, lo4, hi4, D, s_hat,
+                                   nearest_params, active_v_u=act4,
+                                   work_count=w),
+        lambda: sweep_pile(epis4, lo4, hi4, D, s_hat, nearest_params),
+        act4, (epis4.numel() + int(act4.sum()) + 64 * U * (3 + 4 + 2)) * 4,
+        4)[0]
+    del act4, lo4, hi4
 
     # merge as the pass does, then the median on the s_hat plane
     good = active & (res.best_score > params.raw_score_threshold)
@@ -511,16 +580,19 @@ def main() -> int:
     claim0 = state.claim.clone()
     claim0[s_hat] = active
 
-    def check_paint(tag, claim, fr, src, rb, m, cf, **launch):
+    def check_paint(tag, claim, fr, src, rb, m, cf, lc=None, **launch):
+        """The paint with the payloads (depth, disp_conf) and, given
+        ``lc``, line mode's third (line_conf)."""
         Sp, Vp, Up, Cp = fr.shape
+        srcs = [src, cf] + ([] if lc is None else [lc])
 
         def fresh():
-            return (claim.clone(), torch.zeros((Sp, Vp, Up), device=dev),
-                    torch.zeros((Sp, Vp, Up), device=dev))
+            return (claim.clone(), *(torch.zeros((Sp, Vp, Up), device=dev)
+                                     for _ in srcs))
 
-        def paint(fn, cl, t0_, t1_, **kw):
+        def paint(fn, cl, *tgts, **kw):
             return fn(cl, fr, src, rb, m, s_hat, params.slope_factor,
-                      params.propagation_epsilon, [(t0_, src), (t1_, cf)],
+                      params.propagation_epsilon, list(zip(tgts, srcs)),
                       **kw)
 
         got = fresh()
@@ -536,8 +608,8 @@ def main() -> int:
         # what the function needs for these sources: the mask and the
         # source planes once; for each (frame, source) whose target lies in
         # the row its claim byte and, where that target is open, its
-        # colours; claim and the two payloads written at painted targets
-        P = 2
+        # colours; claim and the payloads written at painted targets
+        P = len(srcs)
         vi, ui = torch.nonzero(m, as_tuple=True)
         per_ds = src[vi, ui] * f32(params.slope_factor)
         n_reach = torch.zeros((), dtype=torch.int64, device=dev)
@@ -555,7 +627,8 @@ def main() -> int:
         bms, by = bound(nbytes, n_reach * 3 + n_reach_open * (3 * Cp + 1))
         err = max(float((a.float() - b.float()).abs().max())
                   for a, b in zip(got, want))
-        print(f"  paint {tag}: bitwise {same}, {int(m.sum())} sources, "
+        print(f"  paint {tag}: bitwise {same}, {P} payloads, "
+              f"{int(m.sum())} sources, "
               f"{n_open} open targets, {n_reach} (frame, source) pairs in "
               f"the row, {n_reach_open} at an open target, {painted} "
               f"targets painted, "
@@ -581,6 +654,32 @@ def main() -> int:
                 (mask[:64] & late((64, U), 0.01)).contiguous(),
                 conf[:64].contiguous(), tile=200)
     del claim4, args4
+    # line mode: C_l of the pass from the sweep's k_best (plain PyTorch,
+    # timed here for its share of a pass), its sources, the third payload
+    ce_line = state.ce.clone()
+    ce_line[s_hat] = torch.where(active & ~good, torch.zeros_like(
+        ce_line[s_hat]), ce_line[s_hat])
+
+    def line_conf():
+        return torch.where(good, _line_confidence(ce_line, filtered,
+                                                  res_k.k_best, mask, s_hat),
+                           torch.zeros_like(filtered)).contiguous()
+
+    lc = line_conf()
+    lc_ms = time_ms(torch, line_conf, reps=5)
+    lc_src = (lc > params.line_score_threshold).contiguous()
+    print(f"  line confidence (plain PyTorch, one batched gather over "
+          f"[S, V, U]): {lc_ms:.3f} ms at the first level-0 pass, "
+          f"{int(lc_src.sum())} sources of {int(good.sum())} swept px")
+    del ce_line, res_k
+    modes["paint"]["three payloads"] = check_paint(
+        "C=1 line mode, three payloads", claim0, frames, filtered, rbar,
+        lc_src, conf, lc=lc)
+    modes["paint"]["three payloads, late pass"] = check_paint(
+        "C=1 line mode, three payloads, late pass",
+        claim0 & late((S, V, U), 0.1), frames, filtered, rbar,
+        lc_src & late((V, U), 0.01), conf, lc=lc)
+    del lc, lc_src
     del comp, epis, frames, state, res, claim0, epis3, epis4, frames4
     torch.cuda.empty_cache()
     if failures:
@@ -588,7 +687,7 @@ def main() -> int:
         return 1
     print("phase 2 ok: every kernel agrees with its plain version")
 
-    # ---- phases 3-5: the main paths, counts reset just before each ----
+    # ---- the main paths (phases 3-5, 7-9), counts reset just before each
     wrappers = {"sweep_pixel": sweep_pile_pixel, "sweep_rows": sweep_pile_rows,
                 "sweep_tiles": sweep_pile_tiles,
                 "median": selective_median_cuda, "paint": propagate_cuda}
@@ -613,8 +712,8 @@ def main() -> int:
             failures.append(f"{tag}: never launched {missing}")
         return out, wall_, counts
 
-    def run_ftc(v):
-        f = FineToCoarse(v, DMIN, DMAX, D, params=params, device=dev)
+    def run_ftc(v, p=params):
+        f = FineToCoarse(v, DMIN, DMAX, D, params=p, device=dev)
         f.run()
         return (f, *f.get_results())
 
@@ -765,11 +864,93 @@ def main() -> int:
     check_tiles("tile mode C=4 k_best (64 rows)", level1, slice(0, 64), True,
                 True)
     check_tiles("tile mode C=4 (level 4)", level4, every, True, False)
+    del level1, level4, vol4
+    torch.cuda.empty_cache()
     if failures:
         print("phase 6 FAILED: " + "; ".join(failures))
         return 1
     print(f"phase 6 ok: the tile sweep agrees with its plain version; "
           f"script {time.perf_counter() - t_start:.1f}s so far")
+
+    # ---- phases 7-8: line mode and fast mode on the bench scene ----
+    vol, _ = synthetic_sequence(torch, dev)
+    mask1 = edge_mask(vol)
+    for phase, tag, p, jax_q, gates in (
+            (7, "line mode", line_params, JAX_LINE,
+             (ref["rmse_px"] + LINE_MARGIN_PX, float("inf"))),
+            (8, "fast mode", fast_params, JAX_FAST,
+             (ref["rmse_px"] + MARGIN_PX, ref["p90_px"] + MARGIN_PX))):
+        (f, fused_, validity_), wall, launches = run_path(
+            f"phase {phase}", ("sweep_pixel", "median", "paint"),
+            lambda: run_ftc(vol, p))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rmse_, p90_, _ = quality(fused_, mask1)
+        finite_ = (tuple(fused_.shape) == (S, V, U)
+                   and bool(torch.isfinite(fused_).all()))
+        ok_ = rmse_ <= gates[0] and p90_ <= gates[1] and finite_
+        print(f"phase {phase} {tag} pipeline: {wall:.2f}s wall, levels (V, "
+              f"S, U, passes, s) {level_line(f)}, launches {launches}, peak "
+              f"{peak:.2f} GiB")
+        print(f"phase {phase} quality: RMSE {rmse_:.4f} px (gate "
+              f"{gates[0]:.4f}), P90 {p90_:.4f} px (gate {gates[1]:.4f}) on "
+              f"phase 3's edge px; the JAX package on this scene: RMSE "
+              f"{jax_q[0]} px, P90 {jax_q[1]} px; coverage "
+              f"{float(validity_.float().mean()) * 100:.1f}%; finite "
+              f"{finite_}: {'ok' if ok_ else 'FAILED'}")
+        del f, fused_, validity_
+        if not ok_ or failures:
+            print(f"phase {phase} FAILED: " + "; ".join(failures))
+            return 1
+
+    # ---- phase 9: nearest interpolation (no anchor: finite, errors) ----
+    def pile_errors(tag, v, layers_gt, needs, **kw):
+        """A nearest pile as a main path: its depths' errors at its edge
+        mask (against the one gt row, or the nearest of a few layer
+        disparities) and whether they are finite."""
+        r, wall_, launches_ = run_path(
+            f"phase 9 {tag}", needs,
+            lambda: Depth1DComputerPile(v, params=nearest_params, device=dev,
+                                        **kw).run())
+        m_ = r.edge_mask
+        d_ = r.best_depth[m_][:, None]
+        e_ = torch.abs(d_ - layers_gt(m_)).amin(1).double().cpu().numpy()
+        fin = bool(torch.isfinite(r.best_depth).all()) and e_.size > 0
+        print(f"phase 9 {tag}: {wall_:.3f}s wall, launches {launches_}, "
+              f"{float(m_.float().mean()) * 100:.1f}% px kept, |depth - gt| "
+              f"P50 {np.percentile(e_, 50):.4f} px, P90 "
+              f"{np.percentile(e_, 90):.4f} px, RMSE "
+              f"{np.sqrt(np.mean(e_ ** 2)):.4f} px; finite {fin}")
+        if not fin:
+            failures.append(f"phase 9 {tag}: depths not finite")
+
+    row_gt = lambda m_: gt_row.expand(V, U)[m_][:, None]
+    pile_errors("pile (pixel sweep)", vol, row_gt,
+                ("sweep_pixel", "median"), dmin=DMIN, dmax=DMAX, dim_d=D,
+                s_hat=s_hat)
+    vol4, _ = synthetic_sequence(torch, dev, gains=BAND_GAINS)
+    pile_errors("pile four bands (tile sweep)", vol4, row_gt,
+                ("sweep_tiles", "median"), dmin=DMIN, dmax=DMAX, dim_d=D,
+                s_hat=s_hat)
+    del vol4
+    layers_t = torch.as_tensor(layers, device=dev)[None]
+    pile_errors("strips16 pile", torch.as_tensor(build_epis_from_imgs(
+        read_imgs_from_folder(data, "png")), device=dev),
+        lambda m_: layers_t, ("sweep_pixel", "median"), dmin=-1.0, dmax=1.5,
+        dim_d=24)
+    (f, fused_n, _), wall, launches = run_path(
+        "phase 9 pipeline", ("sweep_pixel", "median", "paint"),
+        lambda: run_ftc(vol, nearest_params))
+    rmse_n, p90_n, _ = quality(fused_n, mask1)
+    finite_n = (tuple(fused_n.shape) == (S, V, U)
+                and bool(torch.isfinite(fused_n).all()))
+    print(f"phase 9 nearest pipeline: {wall:.2f}s wall, levels (V, S, U, "
+          f"passes, s) {level_line(f)}, launches {launches}, RMSE "
+          f"{rmse_n:.4f} px, P90 {p90_n:.4f} px on phase 3's edge px; "
+          f"finite {finite_n}")
+    del f, fused_n, vol, mask1
+    if not finite_n or failures:
+        print("phase 9 FAILED: " + "; ".join(failures))
+        return 1
 
     meta = {
         "sweep_pixel": ("remotesensingproject_tpu_torch/csrc/sweep_pixel.cu",
@@ -785,7 +966,8 @@ def main() -> int:
             "remotesensingproject_tpu/ops/sweep_pallas_perpixel.py:43"),
     }
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
-                    launches=total[k], library_ms=None, **records[k])
+                    launches=total[k], library_ms=None, **records[k],
+                    **({"modes": modes[k]} if k in modes else {}))
                for k, (src, rep) in meta.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -5,9 +5,10 @@ Counterpart of the ``pile``, ``depth2d`` and ``fine-to-coarse`` commands of
 folder of frames, run the computation, write its arrays to
 ``pile_results.npz``, ``depth2d_results.npz`` or
 ``fine_to_coarse_results.npz``.  Runs on CUDA unless ``--device`` names
-another device.  The coloured PNGs, ``--score line``, ``--fast``,
-``--sharded``, ``--ckpt-dir`` and the other commands are not ported yet
-(ROADMAP.md) and raise NotImplementedError.
+another device.  ``--score line`` runs line mode and ``--fast`` caps the
+pixel sweep's mean shift at 5 steps, as in the JAX commands.  The coloured
+PNGs, ``--sharded``, ``--ckpt-dir``, ``--no-pallas`` and the other commands
+are not ported yet (ROADMAP.md) and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -38,9 +39,10 @@ def _add_depth_args(p):
     p.add_argument("--sharded", action="store_true", help="not ported")
     p.add_argument("--ckpt-dir", default=None, help="not ported")
     p.add_argument("--score", choices=["edge", "disp", "line"],
-                   default="edge", help="confidence criterion (line: not "
-                                        "ported)")
-    p.add_argument("--fast", action="store_true", help="not ported")
+                   default="edge", help="confidence criterion")
+    p.add_argument("--fast", action="store_true",
+                   help="quality-gated fast mode: cap the pixel sweep's "
+                        "mean shift at 5 iterations")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda, required)")
 
@@ -50,11 +52,11 @@ def _make_params(args):
 
     for flag, name in ((args.no_pallas, "--no-pallas"),
                        (args.sharded, "--sharded"),
-                       (args.ckpt_dir, "--ckpt-dir"), (args.fast, "--fast"),
-                       (args.score == "line", "--score line")):
+                       (args.ckpt_dir, "--ckpt-dir")):
         if flag:
             raise NotImplementedError(f"{name} is not ported yet")
-    return dataclasses.replace(DEFAULT_PARAMS, score_version=args.score)
+    return dataclasses.replace(DEFAULT_PARAMS, score_version=args.score,
+                               fast=args.fast)
 
 
 def _read_volume(args):

@@ -37,8 +37,13 @@ class DepthParams:
     cut_shadows: bool = True
     shadow_level: float = SHADOW_NORMALIZED_LEVEL
     score_version: Literal["edge", "disp", "line"] = "edge"
-    # mean-shift iteration cap of the JAX package's fast mode; not yet
-    # supported by the port (ROADMAP.md)
+    # Fast mode: cap the truncated mean shift of the PIXEL sweep at 5
+    # iterations instead of the reference's 10 (core.hpp:16), under linear
+    # interpolation, as the JAX package's pixel kernel does.  Not bit-exact
+    # against the reference: quality-gated by the REF_ANCHOR margin.  No
+    # effect on the row and tile sweeps or on nearest interpolation, which
+    # the JAX package runs uncapped (its dense-row and per-pixel kernels
+    # and its XLA path).
     fast: bool = False
 
     def with_slope_factor(self, slope_factor: float) -> "DepthParams":

@@ -6,7 +6,8 @@
 // Reference: rslf_depth_computation_core.hpp:1083-1129.
 //
 // What it computes: every source pixel (v, u') of the s_hat plane (those of
-// `mask`) paints its payloads onto the targets (s, v, u' + o),
+// `mask`) paints its payloads (1 to 3 (source, target) pairs: depth and
+// disp_conf, and line_conf in line mode) onto the targets (s, v, u' + o),
 // o = round_half_away((depth[v, u'] * slope) * (s_hat - s)), that are still
 // unclaimed and whose frame colour is within eps of the source's r_bar
 // (chan_scale * sum_c diff^2 < eps^2).  The reference's order is first
@@ -15,8 +16,8 @@
 //
 // Bound on this card: bytes.  Each target reads its claim byte; an
 // unclaimed one that a source reaches also reads its C colours and, where
-// painted, writes its claim byte and its two payloads (depth and
-// disp_conf); the source rows are [V, U] planes that stay in cache.
+// painted, writes its claim byte and its payloads; the source rows are
+// [V, U] planes that stay in cache.
 //
 // Design: the work is driven from the sources, one rounding per
 // (s, source), not from the targets (a target cannot know which of the
@@ -28,7 +29,9 @@
 // that the loads of a batch are in flight together): a source whose target
 // lies in the tile, is open and passes the colour test does
 // atomicMin(&win[target], u').  After a block barrier each target with a
-// winner takes the payloads of source win[target] and closes its claim.
+// winner takes the payloads of source win[target], in payload order, and
+// closes its claim (a third payload is one more load and store there, under
+// a test on a launch constant).
 // The minimum does not depend on the order of the atomics, so the result is
 // deterministic and equals the plain version's descending-offset scan bit
 // for bit.  Neighbouring sources have near offsets, so the claim and frame
@@ -52,10 +55,13 @@ struct PaintArgs {
   const float* rbar;           // [V, U, C]
   int S, V, U, C, s_hat;
   float slope, cs, eps_sq;
-  const float* src0;           // [V, U] payload sources
+  int n_pay;                   // payloads, 1 to 3
+  const float* src0;           // [V, U] payload sources (unused: null)
   const float* src1;
-  float* tgt0;                 // [S, V, U] payload targets
+  const float* src2;
+  float* tgt0;                 // [S, V, U] payload targets (unused: null)
   float* tgt1;
+  float* tgt2;
   int tile;                    // target columns of a block
   int n_tiles;
   int s_run;                   // frames of a block
@@ -138,7 +144,8 @@ __global__ void __launch_bounds__(kThreads) paint_kernel(const PaintArgs a) {
       win[i] = kNone;  // for the next frame
       const size_t t = trow + u0 + i;
       a.tgt0[t] = __ldg(a.src0 + vrow + us);
-      a.tgt1[t] = __ldg(a.src1 + vrow + us);
+      if (a.n_pay > 1) a.tgt1[t] = __ldg(a.src1 + vrow + us);
+      if (a.n_pay > 2) a.tgt2[t] = __ldg(a.src2 + vrow + us);
       a.claim[t] = 0;
     }
     __syncthreads();
@@ -158,7 +165,8 @@ cudaError_t launch(const PaintArgs& a, cudaStream_t stream) {
 
 RSLF_DEFINE_ERROR_STRING(rslf_paint_error_string)
 
-// Launch on `stream`; updates claim and the two targets in place.  `tile`
+// Launch on `stream`; updates claim and the `n_payloads` (1 to 3) targets in
+// place, (src0, tgt0) first; the pointers of unused payloads are null.  `tile`
 // is the number of target columns of a block; 0 lets the launcher choose
 // (whole rows up to 4,096 columns).  A block takes a run of frames that
 // leaves some 32 blocks for each SM (on an H100 runs of 4 to 25 frames are
@@ -167,8 +175,15 @@ RSLF_EXPORT int rslf_paint(unsigned char* claim, const float* frames,
                            const float* depth, const unsigned char* mask,
                            const float* rbar, int S, int V, int U, int C,
                            int s_hat, float slope, float cs, float eps_sq,
-                           const float* src0, float* tgt0, const float* src1,
-                           float* tgt1, int tile, void* stream) {
+                           int n_payloads, const float* src0, float* tgt0,
+                           const float* src1, float* tgt1, const float* src2,
+                           float* tgt2, int tile, void* stream) {
+  const float* srcs[3] = {src0, src1, src2};
+  const float* tgts[3] = {tgt0, tgt1, tgt2};
+  if (n_payloads < 1 || n_payloads > 3) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 3; ++i)
+    if ((i < n_payloads) != (srcs[i] != nullptr && tgts[i] != nullptr))
+      return (int)cudaErrorInvalidValue;
   if (S <= 0 || V <= 0 || U <= 0) return (int)cudaSuccess;
   if (tile < 0 || tile > 8192) return (int)cudaErrorInvalidValue;
   if (tile == 0) tile = U < 4096 ? U : 4096;
@@ -185,8 +200,8 @@ RSLF_EXPORT int rslf_paint(unsigned char* claim, const float* frames,
   const int s_run = (int)((S + runs - 1) / runs);
   const int n_runs = (S + s_run - 1) / s_run;
   const PaintArgs a{claim, frames, depth, mask, rbar, S, V, U, C, s_hat,
-                    slope, cs, eps_sq, src0, src1, tgt0, tgt1, tile, n_tiles,
-                    s_run, n_runs};
+                    slope, cs, eps_sq, n_payloads, src0, src1, src2, tgt0,
+                    tgt1, tgt2, tile, n_tiles, s_run, n_runs};
   cudaStream_t st = (cudaStream_t)stream;
   switch (C) {
     case 1:

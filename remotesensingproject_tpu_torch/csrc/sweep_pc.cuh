@@ -13,6 +13,9 @@
 //     (1 - t) * row[i0 + u] + t * row[i0 + u + 1], valid iff
 //     -i0 <= u <= U - 1 - (i0 + (t > 0)); it differs from the first rule in
 //     the last ulp of the weight;
+//   * nearest (PcRuleNearest, interpolation="nearest"): I as per pixel,
+//     r = round_half_away(I), the one sample row[r], valid iff
+//     0 <= r <= U - 1 (the plain version's `_radiances` nearest branch);
 // then the truncated mean shift from the pixel's s_hat colour; the score
 // sum_s K / card_R with the kernel values of the last step; over the
 // candidates the first-max argmax and the score sum in candidate order;
@@ -50,7 +53,7 @@
 //     path, branch-free; the ceil column is read only where it differs from
 //     the floor column), then the interpolation, so that many loads are in
 //     flight; it notes the run [s_a, s_b] of valid samples: the position
-//     (under either rule) is monotone in s, so the valid samples are one run;
+//     (under every rule) is monotone in s, so the valid samples are one run;
 //   * runs the mean shift over that run only, with no validity test, each
 //     staged word read once a step, in batches of 8 samples whose K are
 //     independent while the adds to the sums keep their order; a fixed
@@ -210,6 +213,27 @@ struct PcRuleRow {
     p.ok = (fu >= -f0) && (fu <= (float)(U - 1) - top);
     p.up = p.ok && (p.t > 0.f);
     p.i0 = p.ok ? (int)f0 + u : 0;
+    return p;
+  }
+};
+
+// The nearest rule: I = u + (ds * delta) * slope as in PcRulePixel, the
+// column r = sign(I) * floor(|I| + 0.5), valid iff 0 <= r <= U - 1.  With
+// t = 0 and up = false an item's (1 - t) * a + t * b is a and the ceil
+// column is never read, so staging, mean shift, scores and k_best need
+// nothing else.  r is monotone in s like I, so the valid samples stay one
+// run.  The comparisons are made on floats, so a column beyond the int
+// range is invalid and never converted.
+struct PcRuleNearest {
+  static __device__ __forceinline__ PcPos pos(float ds, int u, int U,
+                                              float delta, float slope) {
+    const float idx = (float)u + (ds * delta) * slope;
+    const float r = rslf_round_half_away(idx);
+    PcPos p;
+    p.t = 0.f;
+    p.ok = (r >= 0.f) && (r <= (float)(U - 1));
+    p.up = false;
+    p.i0 = p.ok ? (int)r : 0;
     return p;
   }
 };

@@ -7,15 +7,21 @@
 // What it computes, per active pixel (v, u) of the pass: for each of the
 // D candidate disparities d = lo + (k * (hi - lo)) / (D - 1) (uniform or
 // the pixel's own [lo, hi]), the S radiances sampled at
-// u + ((s_hat - s) * d) * slope by linear interpolation (a sample is
-// valid iff floor >= 0 and ceil <= U - 1), then `iters` truncated
+// I = u + ((s_hat - s) * d) * slope by linear interpolation (a sample is
+// valid iff floor(I) >= 0 and ceil(I) <= U - 1) or, with `nearest`, at
+// the column round_half_away(I) (valid iff it lies in [0, U - 1]; the
+// plain version's `interpolation="nearest"`), then `iters` truncated
 // mean-shift steps, the score sum_s K / card_R with the kernel of the
 // last step, and over the candidates the first-max argmax and the score
-// sum.
+// sum.  Optionally k_best [V, S, U], the winning candidate's kernel values
+// of its last step (line mode's input; `sweep_pile(..., with_k_best=True)`).
+// The wrapper passes iters = min(mean_shift_max_iter, 5) in fast mode, as
+// the TPU kernel caps it; the kernel itself only runs the count it is given.
 //
 // Bound on this card: fp32 CUDA-core arithmetic that cannot fuse.  The work
 // is active px x D x valid samples x mean-shift steps x (4C + 5) operations;
-// the bytes are one read of the EPI rows and a few floats out per pixel.
+// the bytes are one read of the EPI rows, a few floats out per pixel and,
+// with k_best, S floats more.
 //
 // Design: a launcher of the (pixel, candidate) core, sweep_pc.cuh, in its
 // unmasked mode: every candidate of every listed pixel is an item, a thread
@@ -23,33 +29,45 @@
 // one thread per pixel folds the scores in candidate order.  What bounds it
 // is the shared memory that holds each thread's staged samples (S x C
 // floats a thread), which sets the resident threads of an SM; the launcher
-// picks the block size from the occupancy the runtime reports.  The TPU's
-// 128-lane groups, 8-pixel batches and scalar-core compaction are not
-// carried over: the wrapper compacts the active pixels with torch.nonzero.
+// picks the block size from the occupancy the runtime reports.  The linear
+// and the nearest rule are two instantiations of the core (PcRulePixel,
+// PcRuleNearest).  k_best is the core's export: after a group, one (pixel,
+// s) a thread recomputes the winner's sample and its K (consecutive threads
+// take consecutive s of one pixel, so their stores lie U floats apart).
+// The TPU's 128-lane groups, 8-pixel batches and scalar-core compaction are
+// not carried over: the wrapper compacts the active pixels with
+// torch.nonzero.
 
 #include "sweep_pc.cuh"
 
 RSLF_DEFINE_ERROR_STRING(rslf_sweep_pixel_error_string)
 
-// The launcher's plan for this size into out[5]: threads of a block, items
-// of a window, bytes of shared memory a block, resident blocks an SM, SMs.
+// The launcher's plan for this size, with or without k_best, under the
+// linear or the nearest rule, into out[5]: threads of a block, items of a
+// window, bytes of shared memory a block, resident blocks an SM, SMs.
 // Returns the CUDA error code (cudaErrorInvalidConfiguration when no block
 // size fits).
-RSLF_EXPORT int rslf_sweep_pixel_plan(int S, int C, int* out) {
-  return rslf_pc::plan_for_c<PcRulePixel>(S, C, 0, 0, 0, out);
+RSLF_EXPORT int rslf_sweep_pixel_plan(int S, int C, int with_k, int nearest,
+                                      int* out) {
+  return nearest
+             ? rslf_pc::plan_for_c<PcRuleNearest>(S, C, with_k, 0, 0, out)
+             : rslf_pc::plan_for_c<PcRulePixel>(S, C, with_k, 0, 0, out);
 }
 
 // Launch on `stream`; returns the CUDA error code of the launch.  `bmin` /
-// `bmax` (per-pixel bounds) and `work_count` may be null.
+// `bmax` (per-pixel bounds), `k_best` and `work_count` may be null;
+// `nearest` != 0 takes the nearest rule.
 RSLF_EXPORT int rslf_sweep_pixel(
     const float* epis, int S, int U, int C, const int* act, int n_act,
     const float* bmin, const float* bmax, float dmin, float dmax, int D,
-    int s_hat, float slope, float a_coef, int iters,
+    int s_hat, float slope, float a_coef, int iters, int nearest,
     float* best_score, float* score_mean, float* best_depth, float* rbar,
-    unsigned long long* work_count, void* stream) {
+    float* k_best, unsigned long long* work_count, void* stream) {
   const PcArgs a{epis, S, U, C, act, n_act, bmin, bmax, dmin, dmax,
                  nullptr, nullptr, D, s_hat, slope, a_coef, iters, 0, 0, 0,
-                 SweepOut{best_score, score_mean, best_depth, rbar, nullptr,
+                 SweepOut{best_score, score_mean, best_depth, rbar, k_best,
                           work_count}};
-  return rslf_pc::launch_for_c<PcRulePixel>(a, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  return nearest ? rslf_pc::launch_for_c<PcRuleNearest>(a, st)
+                 : rslf_pc::launch_for_c<PcRulePixel>(a, st);
 }

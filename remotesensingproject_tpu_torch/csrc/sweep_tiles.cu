@@ -11,7 +11,10 @@
 // [lo, hi] (in the tile mode the caller passes bounds shared by each
 // 128-lane tile), the S samples at I = u + ((s_hat - s) * delta) * slope,
 // computed per pixel: (1 - t) * row[floor(I)] + t * row[ceil(I)], valid
-// iff floor(I) >= 0 and ceil(I) <= U - 1.  Then the mean shift, scoring,
+// iff floor(I) >= 0 and ceil(I) <= U - 1, or with `nearest` the one sample
+// row[round_half_away(I)], valid iff that column lies in [0, U - 1] (the
+// plain version's `interpolation="nearest"`; callers take the pixel mode
+// for it, each pixel's own grid).  Then the mean shift, scoring,
 // first-max argmax and score mean, and optionally k_best.  In the masked
 // mode (allowed ranges [pmin, pmax] given) a candidate outside
 // [pmin - step, pmax + step], step = (hi - lo) / (D - 1), can neither win
@@ -32,29 +35,35 @@
 // exist because the TPU has no per-lane gather; here each thread reads its
 // own samples.  The 128-lane tiles stay a semantic of the caller (the
 // quantized grid bounds), not of the block shape.  Any D, any C (registers
-// for C <= 4, shared memory beyond).
+// for C <= 4, shared memory beyond).  The linear and the nearest rule are
+// two instantiations of the core (PcRulePixel, PcRuleNearest).  Fast mode
+// does not cap this kernel (the TPU caps only its pixel kernel).
 
 #include "sweep_pc.cuh"
 
 RSLF_DEFINE_ERROR_STRING(rslf_sweep_tiles_error_string)
 
-// The launcher's plan for this size and mode into out[5]: threads of a block, items
-// of a window, bytes of shared memory a block, resident blocks an SM, SMs.
-// Returns the CUDA error code (cudaErrorInvalidConfiguration when no block
-// size fits).
+// The launcher's plan for this size and mode, under the linear or the
+// nearest rule, into out[5]: threads of a block, items of a window, bytes of
+// shared memory a block, resident blocks an SM, SMs.  Returns the CUDA error
+// code (cudaErrorInvalidConfiguration when no block size fits).
 RSLF_EXPORT int rslf_sweep_tiles_plan(int S, int C, int with_k, int masked,
-                                      int* out) {
-  return rslf_pc::plan_for_c<PcRulePixel>(S, C, with_k, masked, 0, out);
+                                      int nearest, int* out) {
+  return nearest ? rslf_pc::plan_for_c<PcRuleNearest>(S, C, with_k, masked,
+                                                      0, out)
+                 : rslf_pc::plan_for_c<PcRulePixel>(S, C, with_k, masked, 0,
+                                                    out);
 }
 
 // Launch on `stream`; returns the CUDA error code of the launch.  `pmin` /
-// `pmax` (the masked mode), `k_best` and `work_count` may be null.
+// `pmax` (the masked mode), `k_best` and `work_count` may be null;
+// `nearest` != 0 takes the nearest rule.
 RSLF_EXPORT int rslf_sweep_tiles(const float* epis, int S, int U, int C,
                                  const int* act, int n_act, const float* bmin,
                                  const float* bmax, const float* pmin,
                                  const float* pmax, int D, int s_hat,
                                  float slope, float a_coef, int iters,
-                                 float* best_score,
+                                 int nearest, float* best_score,
                                  float* score_mean, float* best_depth,
                                  float* rbar, float* k_best,
                                  unsigned long long* work_count,
@@ -63,5 +72,7 @@ RSLF_EXPORT int rslf_sweep_tiles(const float* epis, int S, int U, int C,
                  pmin, pmax, D, s_hat, slope, a_coef, iters, 0, 0, 0,
                  SweepOut{best_score, score_mean, best_depth, rbar, k_best,
                           work_count}};
-  return rslf_pc::launch_for_c<PcRulePixel>(a, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  return nearest ? rslf_pc::launch_for_c<PcRuleNearest>(a, st)
+                 : rslf_pc::launch_for_c<PcRulePixel>(a, st);
 }

@@ -16,6 +16,11 @@ rslf_depth_computation_core.hpp:901-1133):
   {1, 3} and D <= 1024, else the row kernel at uniform levels and the tile
   kernel at bounds-edited ones, with grid bounds quantized per 128-lane
   tile (``coarse_mode="tile"``) or each pixel's own (``"pixel"``).
+  Nearest interpolation, which the JAX package sweeps on its XLA path, goes
+  to the pixel kernel or the tile kernel on each pixel's own grid.
+* line mode (``score_version="line"``): the line confidence C_l of the
+  swept pixels, from the sweep's ``k_best``, gates propagation and is
+  painted as a third payload.
 
 Reference quirks kept on purpose:
 * the median-filtered disparities drive propagation but are not written
@@ -60,7 +65,7 @@ class Depth2DState:
     ce: torch.Tensor          # [S, V, U] edge confidence (sweep-mutated)
     ce_mask: torch.Tensor     # [S, V, U] bool
     disp_conf: torch.Tensor   # [S, V, U]
-    line_conf: torch.Tensor   # [1, 1, 1] (line mode is not ported yet)
+    line_conf: torch.Tensor   # [S, V, U] in line mode, else [1, 1, 1]
     best_depth: torch.Tensor  # [S, V, U]
     rbar: torch.Tensor        # [S, V, U, C]
     claim: torch.Tensor       # [S, V, U] bool (True = unclaimed)
@@ -104,27 +109,68 @@ def sweep_pass(epis: torch.Tensor, active: torch.Tensor, s_hat: int,
                dim_d: int, params: DepthParams, d_bounds: Tuple[float, float],
                dmin_v_u: Optional[torch.Tensor] = None,
                dmax_v_u: Optional[torch.Tensor] = None,
-               coarse_mode: str = "tile") -> SweepResult:
+               coarse_mode: str = "tile",
+               with_k_best: bool = False) -> SweepResult:
     """The sweep of one pass over the ``active`` pixels, on the first
     route that applies: the pixel kernel (C in {1, 3}, D <= 1024); the row
     kernel at a uniform level (``dmin_v_u`` None); the tile kernel with
     grid bounds shared per 128-lane tile and each pixel's range masked
-    (``"tile"``), or on each pixel's own grid (``"pixel"``)."""
-    C = epis.shape[-1]
+    (``"tile"``), or on each pixel's own grid (``"pixel"``).  Nearest
+    interpolation takes the pixel kernel or the tile kernel on each pixel's
+    own grid (the uniform one at uniform levels) whatever ``coarse_mode``
+    says, as the JAX package's XLA path sweeps it."""
+    V, S, U, C = epis.shape
     if C in (1, 3) and dim_d <= MAX_DIM_D:
         return sweep_pile_pixel(epis, d_bounds[0], d_bounds[1], dim_d,
-                                s_hat, params, active, dmin_v_u, dmax_v_u)
-    if dmin_v_u is None:
+                                s_hat, params, active, dmin_v_u, dmax_v_u,
+                                with_k_best)
+    if params.interpolation == "nearest":
+        if dmin_v_u is None:
+            dmin_v_u, dmax_v_u = (
+                torch.full((V, U), f32(b), dtype=DTYPE, device=epis.device)
+                for b in d_bounds)
+        coarse_mode = "pixel"
+    elif dmin_v_u is None:
         return sweep_pile_rows(epis, d_bounds[0], d_bounds[1], dim_d, s_hat,
-                               params, active_v_u=active)
+                               params, with_k_best, active_v_u=active)
     if coarse_mode == "tile":
         qmin, qmax = tile_quantized_bounds(active, dmin_v_u, dmax_v_u,
                                            d_bounds)
         return sweep_pile_tiles(epis, qmin, qmax, dim_d, s_hat, params,
-                                active_v_u=active, pdmin_v_u=dmin_v_u,
-                                pdmax_v_u=dmax_v_u)
+                                with_k_best, active_v_u=active,
+                                pdmin_v_u=dmin_v_u, pdmax_v_u=dmax_v_u)
     return sweep_pile_tiles(epis, dmin_v_u, dmax_v_u, dim_d, s_hat, params,
-                            active_v_u=active)
+                            with_k_best, active_v_u=active)
+
+
+def _line_confidence(ce_s_v_u: torch.Tensor, depth_v_u: torch.Tensor,
+                     k_best_v_s_u: torch.Tensor, mask_v_u: torch.Tensor,
+                     s_hat: int) -> torch.Tensor:
+    """Line confidence C_l = sum_s C_e(I) K / sum_s K along each pixel's
+    winning line (JAX ``depth2d.py:68-135``, reference core.hpp:1032-1081),
+    0 outside ``mask_v_u``.  I = (s_hat - s) * d + u with the filtered depth
+    d; the reference's index leaves out ``slope_factor``, and so does this
+    one.  C_e is interpolated linearly along u; a sample counts iff
+    floor(I) >= 0 and ceil(I) <= U - 1.  One batched gather over
+    ``[S, V, U]``: a fixed number of launches whatever S is."""
+    S, V, U = ce_s_v_u.shape
+    dev = ce_s_v_u.device
+    zero = torch.zeros((), dtype=DTYPE, device=dev)
+    ds = float(s_hat) - torch.arange(S, dtype=DTYPE, device=dev)
+    idx = ds[:, None, None] * depth_v_u + torch.arange(U, dtype=DTYPE,
+                                                       device=dev)
+    fi = torch.floor(idx)
+    valid = (fi >= 0) & (torch.ceil(idx) <= U - 1)
+    t = idx.sub_(fi)                                      # idx - floor(idx)
+    i0 = fi.clamp_(0, U - 1).to(torch.int64)
+    a = torch.gather(ce_s_v_u, 2, i0)
+    b = torch.gather(ce_s_v_u, 2, i0.add_(1).clamp_(max=U - 1))
+    del i0, fi
+    ce_i = torch.where(valid, (1.0 - t) * a + t * b, zero)
+    k = k_best_v_s_u.permute(1, 0, 2)                     # [S, V, U]
+    num = torch.sum(ce_i * k, dim=0)
+    den = torch.sum(k, dim=0)
+    return torch.where(mask_v_u, num / den, zero)
 
 
 def _pass_fn(epis: torch.Tensor, frames: torch.Tensor, state: Depth2DState,
@@ -136,8 +182,7 @@ def _pass_fn(epis: torch.Tensor, frames: torch.Tensor, state: Depth2DState,
     """One center-outward pass (sweep + merge + median + propagation),
     updating ``state`` in place.  Per-pixel bounds are given at the
     bounds-edited levels and None at uniform ones."""
-    if params.score_version not in ("edge", "disp"):
-        raise NotImplementedError("line mode is not ported yet")
+    line = params.score_version == "line"
     ce_p = state.ce[s_hat]
     mask_p = state.ce_mask[s_hat]
     zero = torch.zeros((), dtype=DTYPE, device=epis.device)
@@ -152,7 +197,7 @@ def _pass_fn(epis: torch.Tensor, frames: torch.Tensor, state: Depth2DState,
         dmin_v_u = dmin_s_v_u[s_hat].contiguous()
         dmax_v_u = dmax_s_v_u[s_hat].contiguous()
     res = sweep_pass(epis, active, s_hat, dim_d, params, d_bounds, dmin_v_u,
-                     dmax_v_u, coarse_mode)
+                     dmax_v_u, coarse_mode, with_k_best=line)
 
     ok = res.best_score > params.raw_score_threshold
     good = active & ok
@@ -175,14 +220,23 @@ def _pass_fn(epis: torch.Tensor, frames: torch.Tensor, state: Depth2DState,
     filtered = selective_median_cuda(depth_new, frames[s_hat], mask_new,
                                      params.median_filter_size,
                                      params.median_filter_epsilon)
-    if params.score_version == "disp":
+    payloads = [(state.best_depth, filtered), (state.disp_conf, conf_new)]
+    if line:
+        # C_l is refreshed only where this pass's sweep succeeded (k_best
+        # is the winning line's there); elsewhere the plane keeps its value
+        lc = torch.where(good, _line_confidence(state.ce, filtered,
+                                                res.k_best, mask_new, s_hat),
+                         state.line_conf[s_hat])
+        state.line_conf[s_hat] = lc
+        source_mask = lc > params.line_score_threshold
+        payloads.append((state.line_conf, lc))
+    elif params.score_version == "disp":
         source_mask = conf_new > params.disp_score_threshold
     else:
         source_mask = mask_new
     propagate_cuda(state.claim, frames, filtered, rbar_new, source_mask,
                    s_hat, params.slope_factor, params.propagation_epsilon,
-                   [(state.best_depth, filtered),
-                    (state.disp_conf, conf_new)])
+                   payloads)
     return state
 
 
@@ -263,14 +317,15 @@ class Depth2DComputer:
         def zeros(*shape):
             return torch.zeros(shape, dtype=DTYPE, device=self.device)
 
+        # line_conf is read and written only in line mode
+        lc_shape = (S, V, U) if self.params.score_version == "line" \
+            else (1, 1, 1)
         return Depth2DState(ce=ce, ce_mask=ce_mask, disp_conf=zeros(S, V, U),
-                            line_conf=zeros(1, 1, 1),
+                            line_conf=zeros(*lc_shape),
                             best_depth=zeros(S, V, U),
                             rbar=zeros(S, V, U, C), claim=ce_mask.clone())
 
     def run(self) -> Depth2DState:
-        if self.params.fast:
-            raise NotImplementedError("fast mode is not ported yet")
         V, S, U, C = self.epis.shape
         frames = self.epis.permute(1, 0, 2, 3).contiguous()  # [S, V, U, C]
         state = self.initial_state()
@@ -303,6 +358,8 @@ class Depth2DComputer:
         p = self.params
         if p.score_version == "disp":
             return self.state.disp_conf > p.disp_score_threshold
+        if p.score_version == "line":
+            return self.state.line_conf > p.line_score_threshold
         return self.state.ce > p.edge_score_threshold
 
     def get_epis(self) -> torch.Tensor:

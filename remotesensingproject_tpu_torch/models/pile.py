@@ -5,7 +5,11 @@ Depth1DComputer_pile, rslf_depth_computation.hpp:425-641): normalize, edge
 confidence of the s_hat frame, the dense row sweep over every (v, u)
 (CUDA kernel ``csrc/sweep_rows.cu``), sub-threshold zeroing, disparity
 confidence, then the selective median (CUDA kernel ``csrc/median.cu``).
-On the CPU the plain versions run instead.
+Nearest interpolation, which the JAX package sweeps with its XLA
+``sweep_pile`` (per-pixel rounding), takes the pass's per-pixel route
+instead of the row sweep: the pixel kernel with every pixel active for
+C in {1, 3}, the tile kernel on the uniform grid otherwise.  On the CPU the
+plain versions run instead.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from ..ops.median_pallas import selective_median_cuda
 from ..ops.normalize import normalize_volume
 from ..ops.sweep_pallas import sweep_pile_rows
 from ..types import resolve_device
-from .depth2d import _as_tensor
+from .depth2d import _as_tensor, sweep_pass
 
 
 class PileResult(NamedTuple):
@@ -58,8 +62,14 @@ class Depth1DComputerPile:
         p = self.params
         frame = self.epis[:, self.s_hat].contiguous()     # [V, U, C]
         ce, mask = edge_confidence_frame(frame, p)
-        res = sweep_pile_rows(self.epis, self.dmin, self.dmax, self.dim_d,
-                              self.s_hat, p)
+        if p.interpolation == "nearest":
+            every = torch.ones(mask.shape, dtype=torch.bool,
+                               device=self.device)
+            res = sweep_pass(self.epis, every, self.s_hat, self.dim_d, p,
+                             (self.dmin, self.dmax))
+        else:
+            res = sweep_pile_rows(self.epis, self.dmin, self.dmax,
+                                  self.dim_d, self.s_hat, p)
 
         # sub-threshold max scores zero the confidence and the mask
         # (core.hpp:653-657)

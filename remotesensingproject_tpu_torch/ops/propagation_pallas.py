@@ -8,7 +8,8 @@ tensor it launches the kernel or raises.  Claim and targets are updated
 in place.  The kernel is driven from the sources (one offset rounding per
 frame and source, the smallest qualifying source column wins a target), so
 it takes the depths, the source mask and the slope factor as they are and
-needs no offset range.
+needs no offset range.  It carries one to three payloads: depth and
+disp_conf, and line_conf in line mode.
 """
 
 from __future__ import annotations
@@ -25,13 +26,16 @@ from .propagation import propagate
 
 #: the most target columns a block of the kernel takes
 MAX_TILE = 8192
+#: the most (target, source) payload pairs the kernel carries
+MAX_PAYLOADS = 3
 
 
 def _paint_fn():
     lib = cuda_build.load("paint")
     fn = lib.rslf_paint
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P, P, P, P, P, I, I, I, I, I, F, F, F, P, P, P, P, I, P]
+    fn.argtypes = [P, P, P, P, P, I, I, I, I, I, F, F, F, I,
+                   P, P, P, P, P, P, I, P]
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -54,9 +58,9 @@ def propagate_cuda(claim_s_v_u: torch.Tensor, frames_s_v_u_c: torch.Tensor,
                          epsilon, payloads)
     S, V, U = claim_s_v_u.shape
     C = frames_s_v_u_c.shape[-1]
-    if len(payloads) != 2:
+    if not 1 <= len(payloads) <= MAX_PAYLOADS:
         raise NotImplementedError(
-            "the CUDA paint carries two payloads (depth, disp_conf)")
+            f"the CUDA paint carries 1 to {MAX_PAYLOADS} payloads")
     cuda_build.require("claim", claim_s_v_u, dev, torch.bool)
     cuda_build.require("frames", frames_s_v_u_c, dev)
     cuda_build.require("rbar", rbar_v_u_c, dev)
@@ -71,12 +75,14 @@ def propagate_cuda(claim_s_v_u: torch.Tensor, frames_s_v_u_c: torch.Tensor,
     cuda_build.require("depth", depth_f_v_u, dev)
     cuda_build.require("source mask", source_mask_v_u, dev, torch.bool)
     lib, fn = _paint_fn()
-    ptrs = [cuda_build.ptr(t) for tgt, src in payloads for t in (src, tgt)]
+    pairs = list(payloads) + [(None, None)] * (MAX_PAYLOADS - len(payloads))
+    ptrs = [cuda_build.ptr(t) for tgt, src in pairs for t in (src, tgt)]
     err = fn(cuda_build.ptr(claim_s_v_u), cuda_build.ptr(frames_s_v_u_c),
              cuda_build.ptr(depth_f_v_u), cuda_build.ptr(source_mask_v_u),
              cuda_build.ptr(rbar_v_u_c), S, V, U, C, int(s_hat),
              f32(slope_factor), chan_scale(C),
-             float(np.float32(epsilon) ** 2), *ptrs, int(tile),
+             float(np.float32(epsilon) ** 2), len(payloads), *ptrs,
+             int(tile),
              cuda_build.stream_ptr(dev))
     cuda_build.check(err, lib, "rslf_paint_error_string", "paint")
     propagate_cuda.launches += 1

@@ -17,7 +17,10 @@ The candidate grid is the TPU wrapper's device expression,
 
 On a CPU tensor the wrapper runs the plain version, densely over every
 pixel; on a CUDA tensor it launches the kernel over the pixels it is told
-are active, or raises.  Outputs are defined at active pixels only.
+are active, or raises.  Outputs are defined at active pixels only.  Fast
+mode does not cap this sweep (the JAX package caps only its pixel kernel).
+Nearest interpolation is refused: its per-pixel rounding is not this
+shared-shift rule, so callers send it to the pixel or the tile sweep.
 """
 
 from __future__ import annotations
@@ -204,8 +207,6 @@ def sweep_pile_rows(epis_v_s_u_c: torch.Tensor, dmin: float, dmax: float,
                                 candidate_grid(dmin, dmax, dim_d, dev),
                                 s_hat, params, with_k_best)
 
-    if params.fast:
-        raise NotImplementedError("fast mode is not ported yet")
     cuda_build.require("epis", epis_v_s_u_c, dev)
     if work_count is not None:
         cuda_build.require("work_count", work_count, dev, torch.int64)

@@ -8,7 +8,10 @@ positions.  In the masked mode (``pdmin_v_u`` / ``pdmax_v_u`` given) a
 candidate outside the pixel's allowed range, widened by one grid step, can
 neither win nor count in the score mean: that is the tile-quantized coarse
 sweep, whose grid bounds :func:`tile_quantized_bounds` shares per 128-lane
-tile.  Any D and any C.  The kernel is the (pixel, candidate) core
+tile.  Any D and any C, under linear or nearest interpolation (callers
+take the pixel mode for nearest, as the JAX package sweeps it on each
+pixel's own grid).  Fast mode does not cap this sweep (the JAX package
+caps only its pixel kernel).  The kernel is the (pixel, candidate) core
 ``csrc/sweep_pc.cuh``; its launcher chooses the block size and the pixels
 of a group.
 
@@ -61,25 +64,26 @@ def _tiles_fn():
     lib = cuda_build.load("sweep_tiles")
     fn = lib.rslf_sweep_tiles
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P, I, I, I, P, I, P, P, P, P, I, I, F, F, I,
+    fn.argtypes = [P, I, I, I, P, I, P, P, P, P, I, I, F, F, I, I,
                    P, P, P, P, P, P, P]
     fn.restype = ctypes.c_int
     plan = lib.rslf_sweep_tiles_plan
-    plan.argtypes = [I, I, I, I, P]
+    plan.argtypes = [I, I, I, I, I, P]
     plan.restype = ctypes.c_int
     return lib, fn, plan
 
 
 def launch_plan(S: int, C: int, with_k_best: bool = False,
-                masked: bool = True) -> dict:
+                masked: bool = True, nearest: bool = False) -> dict:
     """What the launcher chose for ``S`` samples of ``C`` channels, with or
-    without ``k_best`` and the masked mode, on the current card: threads of
-    a block, items of a window, bytes of shared memory a block, resident
-    blocks an SM, SMs.  Raises NotImplementedError when no block size
-    fits."""
+    without ``k_best`` and the masked mode, under the linear or the nearest
+    rule, on the current card: threads of a block, items of a window, bytes
+    of shared memory a block, resident blocks an SM, SMs.  Raises
+    NotImplementedError when no block size fits."""
     lib, _, plan = _tiles_fn()
     return cuda_build.read_plan(
-        lambda out: plan(S, C, int(with_k_best), int(masked), out), lib,
+        lambda out: plan(S, C, int(with_k_best), int(masked), int(nearest),
+                         out), lib,
         "rslf_sweep_tiles_error_string", "sweep_tiles", f"S={S}, C={C}")
 
 
@@ -108,9 +112,6 @@ def sweep_pile_tiles(epis_v_s_u_c: torch.Tensor, dmin_v_u: torch.Tensor,
     Returns:
       SweepResult; on CUDA zeros at the pixels not swept.
     """
-    if params.interpolation != "linear":
-        raise NotImplementedError("the tile sweep implements linear "
-                                  "interpolation only")
     V, S, U, C = epis_v_s_u_c.shape
     dev = epis_v_s_u_c.device
     masked = pdmin_v_u is not None
@@ -118,8 +119,6 @@ def sweep_pile_tiles(epis_v_s_u_c: torch.Tensor, dmin_v_u: torch.Tensor,
         return sweep_pile(epis_v_s_u_c, dmin_v_u, dmax_v_u, dim_d, s_hat,
                           params, with_k_best, pdmin_v_u, pdmax_v_u)
 
-    if params.fast:
-        raise NotImplementedError("fast mode is not ported yet")
     cuda_build.require("epis", epis_v_s_u_c, dev)
     planes = [("dmin_v_u", dmin_v_u), ("dmax_v_u", dmax_v_u)]
     if masked:
@@ -141,7 +140,8 @@ def sweep_pile_tiles(epis_v_s_u_c: torch.Tensor, dmin_v_u: torch.Tensor,
     err = fn(p(epis_v_s_u_c), S, U, C, p(act), n_act, p(dmin_v_u),
              p(dmax_v_u), p(pdmin_v_u), p(pdmax_v_u), dim_d, int(s_hat),
              f32(params.slope_factor), a_coef, params.mean_shift_max_iter,
-             p(out.best_score), p(out.score_mean),
+             int(params.interpolation == "nearest"), p(out.best_score),
+             p(out.score_mean),
              p(out.best_depth), p(out.rbar), p(out.k_best), p(work_count),
              cuda_build.stream_ptr(dev))
     cuda_build.check(err, lib, "rslf_sweep_tiles_error_string",

@@ -4,9 +4,14 @@ Counterpart of ``remotesensingproject_tpu/ops/sweep_pallas_pixel.py``,
 whose Pallas kernel ``_pixel_kernel`` the CUDA kernel replaces.  The
 kernel sweeps only the active pixels of a pass, with the uniform candidate
 grid or with each pixel's own [dmin, dmax] grid (the bounds-edited pyramid
-levels), D <= 1024 candidates and C in {1, 3}.  The kernel is the
+levels), D <= 1024 candidates and C in {1, 3}, under linear or nearest
+interpolation, and exports ``k_best`` for line mode.  The kernel is the
 (pixel, candidate) core ``csrc/sweep_pc.cuh`` in its unmasked mode; its
 launcher chooses the block size and the pixels of a group.
+
+Fast mode caps the mean shift at 5 steps here, under linear interpolation,
+as the JAX package's pixel kernel does; nearest, which the JAX package
+sweeps on its uncapped XLA path, is not capped.
 
 On a CPU tensor the wrapper runs the plain version, ``ops.sweep.sweep_pile``;
 on a CUDA tensor it launches the kernel or raises.
@@ -15,6 +20,7 @@ on a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional
 
 import torch
@@ -23,8 +29,11 @@ from ..config import DepthParams
 from ..types import DTYPE, chan_scale, f32
 from . import cuda_build
 from .sweep import SweepResult, sweep_pile
+from .sweep_pallas import sweep_outputs
 
 MAX_DIM_D = 1024
+#: mean-shift steps of fast mode (``config.DepthParams.fast``)
+FAST_MAX_ITER = 5
 
 
 def flops_per_sample_step(C: int) -> int:
@@ -34,28 +43,39 @@ def flops_per_sample_step(C: int) -> int:
     return 4 * C + 5
 
 
+def mean_shift_iters(params: DepthParams) -> int:
+    """The mean-shift steps this sweep runs: ``mean_shift_max_iter``, at
+    most :data:`FAST_MAX_ITER` in fast mode under linear interpolation
+    (``sweep_pallas_pixel.py:515-520`` of the JAX package)."""
+    if params.fast and params.interpolation == "linear":
+        return min(params.mean_shift_max_iter, FAST_MAX_ITER)
+    return params.mean_shift_max_iter
+
+
 def _sweep_fn():
     lib = cuda_build.load("sweep_pixel")
     fn = lib.rslf_sweep_pixel
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P, I, I, I, P, I, P, P, F, F, I, I, F, F, I,
-                   P, P, P, P, P, P]
+    fn.argtypes = [P, I, I, I, P, I, P, P, F, F, I, I, F, F, I, I,
+                   P, P, P, P, P, P, P]
     fn.restype = ctypes.c_int
     plan = lib.rslf_sweep_pixel_plan
-    plan.argtypes = [I, I, P]
+    plan.argtypes = [I, I, I, I, P]
     plan.restype = ctypes.c_int
     return lib, fn, plan
 
 
-def launch_plan(S: int, C: int) -> dict:
-    """What the launcher chose for ``S`` samples of ``C`` channels on the
+def launch_plan(S: int, C: int, with_k_best: bool = False,
+                nearest: bool = False) -> dict:
+    """What the launcher chose for ``S`` samples of ``C`` channels, with or
+    without ``k_best``, under the linear or the nearest rule, on the
     current card: threads of a block, items of a window, bytes of shared
     memory a block, resident blocks an SM, SMs.  Raises
     NotImplementedError when no block size fits."""
     lib, _, plan = _sweep_fn()
-    return cuda_build.read_plan(lambda out: plan(S, C, out), lib,
-                                "rslf_sweep_pixel_error_string",
-                                "sweep_pixel", f"S={S}, C={C}")
+    return cuda_build.read_plan(
+        lambda out: plan(S, C, int(with_k_best), int(nearest), out), lib,
+        "rslf_sweep_pixel_error_string", "sweep_pixel", f"S={S}, C={C}")
 
 
 def sweep_pile_pixel(epis_v_s_u_c: torch.Tensor, dmin: float, dmax: float,
@@ -63,6 +83,7 @@ def sweep_pile_pixel(epis_v_s_u_c: torch.Tensor, dmin: float, dmax: float,
                      active_v_u: torch.Tensor,
                      dmin_v_u: Optional[torch.Tensor] = None,
                      dmax_v_u: Optional[torch.Tensor] = None,
+                     with_k_best: bool = False,
                      work_count: Optional[torch.Tensor] = None
                      ) -> SweepResult:
     """Sweep the active pixels of one pass.
@@ -72,34 +93,34 @@ def sweep_pile_pixel(epis_v_s_u_c: torch.Tensor, dmin: float, dmax: float,
       dmin, dmax: the level's uniform candidate bounds.
       active_v_u: ``[V, U]`` bool, the pixels to sweep.
       dmin_v_u / dmax_v_u: optional ``[V, U]`` per-pixel grid bounds.
+      with_k_best: also return ``k_best`` ``[V, S, U]``, the winning
+        candidate's kernel values (line mode).
       work_count: optional int64 CUDA tensor of one element; the kernel
         adds the valid samples times mean-shift steps it ran, the count
         its arithmetic bound is computed from.
 
     Returns:
       SweepResult; at inactive pixels the kernel leaves zeros and the
-      plain version its dense values.  ``k_best`` (line mode) is not
-      exported by the kernel: it is None on CUDA.
+      plain version its dense values.  ``k_best`` is None on CUDA without
+      ``with_k_best``.
     """
     V, S, U, C = epis_v_s_u_c.shape
     dev = epis_v_s_u_c.device
+    iters = mean_shift_iters(params)
     if dev.type != "cuda":
         if dmin_v_u is None:
             dmin_v_u = torch.full((V, U), f32(dmin), dtype=DTYPE, device=dev)
             dmax_v_u = torch.full((V, U), f32(dmax), dtype=DTYPE, device=dev)
-        return sweep_pile(epis_v_s_u_c, dmin_v_u, dmax_v_u, dim_d, s_hat,
-                          params)
+        return sweep_pile(
+            epis_v_s_u_c, dmin_v_u, dmax_v_u, dim_d, s_hat,
+            dataclasses.replace(params, mean_shift_max_iter=iters),
+            with_k_best)
 
-    if params.interpolation != "linear":
-        raise NotImplementedError("the CUDA sweep supports linear "
-                                  "interpolation only")
     if C not in (1, 3):
         raise NotImplementedError("the CUDA sweep supports C in (1, 3)")
     if not 1 <= dim_d <= MAX_DIM_D:
         raise NotImplementedError(f"the CUDA sweep supports dim_d <= "
                                   f"{MAX_DIM_D}")
-    if params.fast:
-        raise NotImplementedError("fast mode is not ported yet")
     cuda_build.require("epis", epis_v_s_u_c, dev)
     cuda_build.require("active", active_v_u, dev, torch.bool)
     per_pixel = dmin_v_u is not None
@@ -109,30 +130,26 @@ def sweep_pile_pixel(epis_v_s_u_c: torch.Tensor, dmin: float, dmax: float,
     if work_count is not None:
         cuda_build.require("work_count", work_count, dev, torch.int64)
 
-    best_score = torch.zeros((V, U), dtype=DTYPE, device=dev)
-    score_mean = torch.zeros((V, U), dtype=DTYPE, device=dev)
-    best_depth = torch.zeros((V, U), dtype=DTYPE, device=dev)
-    rbar = torch.zeros((V, U, C), dtype=DTYPE, device=dev)
-    result = SweepResult(best_score, score_mean, best_depth, rbar, None)
+    out = sweep_outputs(V, S, U, C, with_k_best, dev)
     act = torch.nonzero(active_v_u.reshape(-1)).reshape(-1).to(torch.int32)
     n_act = act.numel()
     if n_act == 0:
-        return result
+        return out
 
     lib, fn, _ = _sweep_fn()
     a_coef = f32(chan_scale(C) / (params.kernel_h * params.kernel_h))
-    err = fn(cuda_build.ptr(epis_v_s_u_c), S, U, C, cuda_build.ptr(act),
-             n_act, cuda_build.ptr(dmin_v_u if per_pixel else None),
-             cuda_build.ptr(dmax_v_u if per_pixel else None),
-             f32(dmin), f32(dmax), dim_d, int(s_hat),
-             f32(params.slope_factor), a_coef, params.mean_shift_max_iter,
-             cuda_build.ptr(best_score), cuda_build.ptr(score_mean),
-             cuda_build.ptr(best_depth), cuda_build.ptr(rbar),
-             cuda_build.ptr(work_count), cuda_build.stream_ptr(dev))
+    p = cuda_build.ptr
+    err = fn(p(epis_v_s_u_c), S, U, C, p(act), n_act,
+             p(dmin_v_u if per_pixel else None),
+             p(dmax_v_u if per_pixel else None), f32(dmin), f32(dmax),
+             dim_d, int(s_hat), f32(params.slope_factor), a_coef, iters,
+             int(params.interpolation == "nearest"), p(out.best_score),
+             p(out.score_mean), p(out.best_depth), p(out.rbar),
+             p(out.k_best), p(work_count), cuda_build.stream_ptr(dev))
     cuda_build.check(err, lib, "rslf_sweep_pixel_error_string",
                      "sweep_pixel", no_fit=f"S={S}, C={C}")
     sweep_pile_pixel.launches += 1
-    return result
+    return out
 
 
 #: kernel launches since the count was last set to 0

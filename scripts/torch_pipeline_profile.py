@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch/CUDA port's pipeline goes, on one GPU.
 
-    python3 scripts/torch_pipeline_profile.py [--bands 4]
+    python3 scripts/torch_pipeline_profile.py [--bands 4] [--score line]
+        [--fast] [--interpolation nearest]
 
 Runs the fine-to-coarse pipeline on the bench scene of ``chip_smoke.py``
-(``--bands 4``: its four-band version, phase 5 there) once to warm up,
+(``--bands 4``: its four-band version, phase 5 there; ``--score``,
+``--fast`` and ``--interpolation`` set those parameters) once to warm up,
 then once under ``torch.profiler``.  Prints one JSON line: the profiled
 wall time, the device time summed per CUDA kernel (the port's kernels by
 name, PyTorch's own kernels grouped), the device busy share (summed
@@ -15,6 +17,7 @@ the card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -27,21 +30,22 @@ import torch  # noqa: E402
 
 from chip_smoke import (BAND_GAINS, DMAX, DMIN, D, card_line,  # noqa
                         synthetic_sequence)
+from remotesensingproject_tpu_torch.config import DEFAULT_PARAMS  # noqa
 from remotesensingproject_tpu_torch.models.fine_to_coarse import \
     FineToCoarse  # noqa: E402
 from remotesensingproject_tpu_torch.ops import cuda_build  # noqa: E402
 
 # the three sweeps launch one core, sweep_pc_kernel: the row sweep under
 # the position rule PcRuleRow; the pixel and the tile sweep under
-# PcRulePixel, and with one band the pipeline reaches that one through the
-# pixel sweep only, with four bands through the tile sweep only
-# (models/depth2d.py sweep_pass).  First match wins.
+# PcRulePixel or PcRuleNearest, and with one band the pipeline reaches
+# those through the pixel sweep only, with four bands through the tile
+# sweep only (models/depth2d.py sweep_pass).  First match wins.
 PORTS = {"PcRuleRow": "sweep_rows", "sweep_pc_kernel": None,
          "selective_median_kernel": "median", "paint_kernel": "paint"}
 
 
-def run(vol):
-    ftc = FineToCoarse(vol, DMIN, DMAX, D, device="cuda")
+def run(vol, params):
+    ftc = FineToCoarse(vol, DMIN, DMAX, D, params=params, device="cuda")
     ftc.run()
     out = ftc.get_results()
     torch.cuda.synchronize()
@@ -51,7 +55,15 @@ def run(vol):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--bands", type=int, choices=(1, 4), default=1)
+    ap.add_argument("--score", choices=("edge", "disp", "line"),
+                    default="edge")
+    ap.add_argument("--fast", action="store_true")
+    ap.add_argument("--interpolation", choices=("linear", "nearest"),
+                    default="linear")
     args = ap.parse_args()
+    params = dataclasses.replace(DEFAULT_PARAMS, score_version=args.score,
+                                 fast=args.fast,
+                                 interpolation=args.interpolation)
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
@@ -60,12 +72,12 @@ def main() -> int:
     cuda_build.build()
     vol, _ = synthetic_sequence(torch, torch.device("cuda"),
                                 gains=BAND_GAINS if args.bands == 4 else None)
-    run(vol)  # warm-up: allocator, library loads
+    run(vol, params)  # warm-up: allocator, library loads
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        ftc, _ = run(vol)
+        ftc, _ = run(vol, params)
         wall = time.perf_counter() - t0
     by_kernel = {}
     other = {}
@@ -84,6 +96,8 @@ def main() -> int:
     print(json.dumps({
         "card": card_line(),
         "bands": args.bands,
+        "params": {"score_version": args.score, "fast": args.fast,
+                   "interpolation": args.interpolation},
         "wall_s": wall,
         "level_seconds": ftc.level_seconds,
         "passes": [c.passes_run for c in ftc.computers],

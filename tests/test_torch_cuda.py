@@ -15,7 +15,10 @@ from its sources, in tiles of target columns and runs of frames.  The
 median works on tiles staged in shared memory: its tests take every
 instantiation (sizes 3 and 5 at C = 1, 3, 4; the generic size; channels in
 stages), images smaller than a tile or a window, eps <= 0 and an empty
-mask."""
+mask.  Line mode, fast mode and nearest interpolation: the pixel sweep's
+k_best and its fast cap, the nearest rule in the pixel and the tile sweep,
+the paint with one to three payloads, and whole runs in each mode against
+the CPU."""
 
 import numpy as np
 import pytest
@@ -459,3 +462,163 @@ def test_depth2d_on_card_matches_cpu(dev):
                            getattr(ref.state, name))
     torch.testing.assert_close(out.state.best_depth.cpu(),
                                ref.state.best_depth, rtol=0, atol=1e-4)
+
+
+# ---- line mode, fast mode, nearest interpolation ----
+
+NEAREST = DepthParams(interpolation="nearest")
+
+
+@pytest.mark.parametrize("C,per_pixel,D", [(1, False, 24), (1, True, 24),
+                                           (3, True, 9), (1, True, 130)])
+@pytest.mark.parametrize("interp", ["linear", "nearest"])
+def test_pixel_k_best_bitwise(dev, C, per_pixel, D, interp):
+    """k_best of the pixel sweep, under both rules, zeros where not swept."""
+    epis = _vol(C, S=10, V=6, U=64).to(dev)
+    V, S, U, _ = epis.shape
+    lo, hi, active = _ranges(V, U, dev, 400 + C + D)
+    if not per_pixel:
+        lo, hi = torch.full_like(lo, -1.0), torch.full_like(hi, 1.5)
+    kw = dict(dmin_v_u=lo, dmax_v_u=hi) if per_pixel else {}
+    p = DepthParams(interpolation=interp)
+    n0 = sweep_pile_pixel.launches
+    got = sweep_pile_pixel(epis, -1.0, 1.5, D, S // 2, p, active,
+                           with_k_best=True, **kw)
+    assert sweep_pile_pixel.launches == n0 + 1
+    want = sweep_pile(epis, lo, hi, D, S // 2, p, with_k_best=True)
+    _same_sweep(got, want, active, True)
+    assert not got.k_best.permute(0, 2, 1)[~active].any()
+    assert got.k_best.permute(0, 2, 1)[active].any()
+
+
+@pytest.mark.parametrize("C,per_pixel", [(1, False), (1, True), (3, False)])
+def test_pixel_fast_bitwise(dev, C, per_pixel):
+    """Fast mode: the pixel sweep against the plain sweep with 5 steps."""
+    epis = _vol(C, S=10, V=6, U=64).to(dev)
+    V, S, U, _ = epis.shape
+    lo, hi, active = _ranges(V, U, dev, 500 + C)
+    if not per_pixel:
+        lo, hi = torch.full_like(lo, -1.0), torch.full_like(hi, 1.5)
+    kw = dict(dmin_v_u=lo, dmax_v_u=hi) if per_pixel else {}
+    got = sweep_pile_pixel(epis, -1.0, 1.5, 24, S // 2,
+                           DepthParams(fast=True), active, with_k_best=True,
+                           **kw)
+    want = sweep_pile(epis, lo, hi, 24, S // 2,
+                      DepthParams(mean_shift_max_iter=5), with_k_best=True)
+    _same_sweep(got, want, active, True)
+
+
+@pytest.mark.parametrize("C,masked,D", [(1, False, 24), (4, False, 24),
+                                        (4, False, 130), (5, False, 9),
+                                        (4, True, 24)])
+def test_tiles_nearest_bitwise(dev, C, masked, D):
+    epis = _vol(C, S=10, V=6, U=64).to(dev)
+    V, S, U, _ = epis.shape
+    lo, hi, active = _ranges(V, U, dev, 600 + C + D)
+    kw = {}
+    if masked:
+        qlo, qhi = tile_quantized_bounds(active, lo, hi, (-1.0, 1.5))
+        kw = dict(pdmin_v_u=lo, pdmax_v_u=hi)
+        lo, hi = qlo, qhi
+    n0 = sweep_pile_tiles.launches
+    got = sweep_pile_tiles(epis, lo, hi, D, S // 2, NEAREST,
+                           with_k_best=True, active_v_u=active, **kw)
+    assert sweep_pile_tiles.launches == n0 + 1
+    want = sweep_pile(epis, lo, hi, D, S // 2, NEAREST, with_k_best=True,
+                      **kw)
+    _same_sweep(got, want, active, True)
+    lin = sweep_pile_tiles(epis, lo, hi, D, S // 2, DepthParams(),
+                           active_v_u=active, **kw)
+    assert not torch.equal(lin.rbar[active], got.rbar[active])
+
+
+@pytest.mark.parametrize("C,with_k", [(1, True), (3, False), (4, True)])
+def test_sweep_launch_plans_of_new_modes(dev, C, with_k):
+    from remotesensingproject_tpu_torch.ops import (sweep_pallas_perpixel,
+                                                    sweep_pallas_pixel)
+
+    plans = [sweep_pallas_perpixel.launch_plan(12, C, with_k, False, True)]
+    if C in (1, 3):
+        plans += [sweep_pallas_pixel.launch_plan(12, C, with_k, nearest)
+                  for nearest in (False, True)]
+    for plan in plans:
+        assert plan["threads"] in (32, 64, 128, 256)
+        assert plan["blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("n_payloads", [1, 2, 3])
+@pytest.mark.parametrize("C", [1, 4])
+def test_paint_payloads_bitwise(dev, C, n_payloads):
+    claim, frames, depth, rbar, sm, conf, tgts, slope = _paint_scene(
+        9, 12, 80, C, seed=20 + C)
+    g = torch.Generator().manual_seed(n_payloads)
+    line = torch.rand(depth.shape, generator=g)
+    tgts = tgts + [torch.rand(claim.shape, generator=g)]
+    claim, frames, depth, rbar, sm = (
+        t.to(dev) for t in (claim, frames, depth, rbar, sm))
+    srcs = [x.to(dev) for x in (depth, conf, line)][:n_payloads]
+    tgts = [x.to(dev) for x in tgts][:n_payloads]
+
+    def run(fn):
+        cl, t = claim.clone(), [x.clone() for x in tgts]
+        fn(cl, frames, depth, rbar, sm, 4, slope, 0.1, list(zip(t, srcs)))
+        return cl, t
+
+    n0 = propagate_cuda.launches
+    cl_k, t_k = run(propagate_cuda)
+    assert propagate_cuda.launches == n0 + 1
+    cl_p, t_p = run(propagate)
+    assert torch.equal(cl_k, cl_p)
+    assert not torch.equal(cl_k, claim)
+    for a, b in zip(t_k, t_p):
+        assert torch.equal(a, b)
+
+
+def test_paint_rejects_payload_counts(dev):
+    claim, frames, depth, rbar, sm, conf, tgts, slope = (
+        x.to(dev) if torch.is_tensor(x) else x
+        for x in _paint_scene(3, 2, 16, 1, seed=0))
+    n0 = propagate_cuda.launches
+    for pay in ([], [(tgts[0].to(dev), depth)] * 4):
+        with pytest.raises(NotImplementedError, match="payloads"):
+            propagate_cuda(claim, frames, depth, rbar, sm, 1, slope, 0.1,
+                           pay)
+    assert propagate_cuda.launches == n0
+
+
+@pytest.mark.parametrize("C,mode", [(1, "line"), (1, "fast"),
+                                    (1, "nearest"), (4, "line"),
+                                    (4, "nearest"), (3, "nearest")])
+def test_depth2d_modes_on_card_match_cpu(dev, C, mode):
+    """A whole run in each mode: the kernels against the plain versions,
+    through the routes the mode takes, at uniform and bounds-edited
+    levels."""
+    params = {"line": DepthParams(score_version="line"),
+              "fast": DepthParams(fast=True), "nearest": NEAREST}[mode]
+    vol = _vol(C, S=8, V=12, U=64, seed=3).numpy()
+    g = torch.Generator().manual_seed(C)
+    c = torch.rand((12, 64), generator=g) * 1.7 - 0.6
+    lo = torch.clamp(c - 0.4, -1.0, 1.5).expand(8, 12, 64).contiguous()
+    hi = torch.clamp(c + 0.4, -1.0, 1.5).expand(8, 12, 64).contiguous()
+    for edited in (False, True):
+        comps = []
+        for device in ("cpu", dev):
+            comp = Depth2DComputer(vol, -1.0, 1.5, 9, params=params,
+                                   device=device)
+            if edited:
+                comp.set_bounds(lo, hi)
+            comp.run()
+            comps.append(comp)
+        ref, out = comps
+        # as test_depth2d_on_card_matches_cpu: the kernels are bitwise, the
+        # PyTorch operations around them (edge confidence, the C_l sums)
+        # round in their own order on each device
+        for name in ("claim", "ce_mask"):
+            assert torch.equal(getattr(out.state, name).cpu(),
+                               getattr(ref.state, name)), (edited, name)
+        for name, atol in (("best_depth", 1e-4), ("line_conf", 1e-5)):
+            torch.testing.assert_close(getattr(out.state, name).cpu(),
+                                       getattr(ref.state, name), rtol=0,
+                                       atol=atol)
+        assert torch.equal(out.get_valid_depths_mask_s_v_u().cpu(),
+                           ref.get_valid_depths_mask_s_v_u())

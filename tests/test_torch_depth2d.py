@@ -1,7 +1,8 @@
 """Port parity: one pass from a state carried across, and the whole
 Depth2DComputer, vs the JAX package's XLA path.  Claims and masks are
 exact; depth within 1e-4 and disp_conf within 2e-3, the tolerances of
-tests/test_depth2d_pallas.py."""
+tests/test_depth2d_pallas.py; in line mode line_conf within 1e-5 (the
+bound of tests/test_variants.py:305)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -43,7 +44,8 @@ def _compare_states(ref, out, exact=("claim", "ce_mask")):
 
 
 @pytest.mark.parametrize("edited,score", [(False, "edge"), (True, "edge"),
-                                          (False, "disp")])
+                                          (False, "disp"), (False, "line"),
+                                          (True, "line")])
 def test_one_pass_from_carried_state(edited, score):
     vol, _ = oracle.make_synthetic_lf(S=8, V=6, U=64, C=1, seed=3,
                                       dmin=DMIN, dmax=DMAX)
@@ -58,7 +60,8 @@ def test_one_pass_from_carried_state(edited, score):
     mask = jnp.transpose(mask, (1, 0, 2))
     state = jd.Depth2DState(
         ce=ce, ce_mask=mask, disp_conf=jnp.zeros((S, V, U)),
-        line_conf=jnp.zeros((1, 1, 1)), best_depth=jnp.zeros((S, V, U)),
+        line_conf=jnp.zeros((S, V, U) if score == "line" else (1, 1, 1)),
+        best_depth=jnp.zeros((S, V, U)),
         rbar=jnp.zeros((S, V, U, C)), claim=mask)
     if edited:
         lo, hi = _edited_bounds(S, V, U)
@@ -89,6 +92,14 @@ def test_one_pass_from_carried_state(edited, score):
     _compare_states(ref, out)
     np.testing.assert_allclose(out.rbar.numpy(), np.asarray(ref.rbar),
                                rtol=0, atol=2e-5)
+    np.testing.assert_allclose(out.line_conf.numpy(),
+                               np.asarray(ref.line_conf), rtol=0, atol=1e-5)
+    if score == "line":
+        # the pass refreshed C_l at the s_hat plane and painted it on
+        assert np.asarray(ref.line_conf)[sched[2]].any()
+        assert (np.asarray(ref.line_conf) != carried["line_conf"]).sum() > \
+            (np.asarray(ref.line_conf)[sched[2]] != carried["line_conf"][
+                sched[2]]).sum()
 
 
 @pytest.mark.parametrize("edited", [False, True])

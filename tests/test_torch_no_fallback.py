@@ -161,6 +161,74 @@ def test_rows_and_paint_raise_for_cuda_tensor_never_plain(monkeypatch,
                   propagation_pallas.propagate_cuda.launches)
 
 
+@pytest.mark.parametrize("case", ["pixel-nearest", "pixel-fast",
+                                  "pixel-k_best", "tiles-nearest",
+                                  "tiles-fast", "rows-fast", "paint-three"])
+def test_line_fast_nearest_raise_for_cuda_tensor_never_plain(monkeypatch,
+                                                             case):
+    """Line mode (k_best, a third payload), fast mode and nearest
+    interpolation on a CUDA tensor launch a kernel or raise: here, with no
+    card and no nvcc, they must raise, reach no plain sweep or paint, and
+    count no launch."""
+    plain_calls = []
+
+    def no_nvcc(name):
+        raise RuntimeError("nvcc not found")
+
+    for mod in (sweep_pallas_pixel, sweep_pallas_perpixel):
+        monkeypatch.setattr(mod, "sweep_pile",
+                            lambda *a, **k: plain_calls.append(a))
+    monkeypatch.setattr(sweep_pallas, "sweep_rows_plain",
+                        lambda *a, **k: plain_calls.append(a))
+    monkeypatch.setattr(propagation_pallas, "propagate",
+                        lambda *a, **k: plain_calls.append(a))
+    monkeypatch.setattr(cuda_build, "load", no_nvcc)
+    wrappers = (sweep_pallas_pixel.sweep_pile_pixel,
+                sweep_pallas_perpixel.sweep_pile_tiles,
+                sweep_pallas.sweep_pile_rows,
+                propagation_pallas.propagate_cuda)
+    n0 = [w.launches for w in wrappers]
+    kind, mode = case.split("-")
+    params = DepthParams(interpolation="nearest" if mode == "nearest"
+                         else "linear", fast=mode == "fast")
+    epis = _OnCard(torch.zeros((2, 5, 16, 1)))
+    plane = _OnCard(torch.zeros((2, 16)))
+    mask = _OnCard(torch.ones((2, 16), dtype=torch.bool))
+    with pytest.raises((RuntimeError, AssertionError)):
+        if kind == "pixel":
+            sweep_pallas_pixel.sweep_pile_pixel(
+                epis, -1.0, 1.5, 5, 2, params, mask,
+                with_k_best=mode == "k_best")
+        elif kind == "tiles":
+            sweep_pallas_perpixel.sweep_pile_tiles(
+                epis, plane, plane, 5, 2, params, with_k_best=True,
+                active_v_u=mask)
+        elif kind == "rows":
+            sweep_pallas.sweep_pile_rows(epis, -1.0, 1.5, 5, 2, params,
+                                         active_v_u=mask)
+        else:
+            volume = _OnCard(torch.zeros((5, 2, 16)))
+            propagation_pallas.propagate_cuda(
+                _OnCard(torch.ones((5, 2, 16), dtype=torch.bool)),
+                _OnCard(torch.zeros((5, 2, 16, 1))), plane,
+                _OnCard(torch.zeros((2, 16, 1))), mask, 2, 1.0, 0.1,
+                [(volume, plane)] * 3)
+    assert not plain_calls
+    assert n0 == [w.launches for w in wrappers]
+
+
+def test_row_sweep_refuses_nearest():
+    """The row sweep's shared-shift rule is not nearest's per-pixel
+    rounding: it refuses nearest on every device."""
+    params = DepthParams(interpolation="nearest")
+    with pytest.raises(NotImplementedError, match="linear"):
+        sweep_pallas.sweep_pile_rows(torch.zeros((2, 5, 16, 1)), -1.0, 1.5,
+                                     5, 2, params)
+    with pytest.raises(NotImplementedError, match="linear"):
+        sweep_pallas.sweep_pile_rows(_OnCard(torch.zeros((2, 5, 16, 1))),
+                                     -1.0, 1.5, 5, 2, params)
+
+
 def test_median_raises_for_cuda_tensor_never_plain(monkeypatch):
     """Given a CUDA tensor the median launches its kernel or raises: here,
     with no card and no nvcc, it must raise, and must not reach the plain

@@ -8,7 +8,8 @@ the smallest bidding u' (a minimum, so the order of the bids does not
 matter), then its payloads and its claim are resolved.  Blocks take tiles
 of target columns.  The PyTorch emulation below does exactly that and must
 equal the plain version's descending-offset, first-writer-wins scan bit
-for bit: claim and both payloads.
+for bit: claim and every payload (one to three: depth, disp_conf and, in
+line mode, line_conf).
 """
 
 import numpy as np
@@ -165,3 +166,27 @@ def test_no_source_at_all(tile):
 def test_late_pass_few_sources_few_open_targets():
     scene = _scene(9, 6, 64, 4, seed=4, p_source=0.03, p_open=0.05)
     _both(scene, 5, -1.0, tile=32)
+
+
+@pytest.mark.parametrize("n_payloads", [1, 2, 3])
+def test_scatter_order_with_one_to_three_payloads(n_payloads):
+    """Every payload of a painted target comes from the same winning
+    source; the kernel writes them in payload order."""
+    claim, frames, depth, rbar, mask, conf, tgts = _scene(9, 6, 50, 1, 11)
+    g = np.random.default_rng(12)
+    line = torch.from_numpy(g.uniform(size=depth.shape).astype(np.float32))
+    tgts.append(torch.from_numpy(
+        g.uniform(size=claim.shape).astype(np.float32)))
+    srcs = [depth, conf, line][:n_payloads]
+
+    def run(fn):
+        cl, t = claim.clone(), [x.clone() for x in tgts[:n_payloads]]
+        fn(cl, frames, depth, rbar, mask, 4, 1.0, 0.1, list(zip(t, srcs)))
+        return cl, t
+
+    cl_e, t_e = run(scatter_paint)
+    cl_p, t_p = run(propagate)
+    assert torch.equal(cl_e, cl_p)
+    assert (claim & ~cl_e).any()
+    for a, b in zip(t_e, t_p):
+        assert torch.equal(a, b)

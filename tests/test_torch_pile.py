@@ -1,7 +1,8 @@
 """Port parity: the pile entry point (one s_hat, all rows; row sweep then
 selective median) against the JAX package's XLA path, the bundled
-data/strips16 gate of tests/test_sample_data.py, and the ``pile`` and
-``depth2d`` commands on the CPU.  The JAX pile reaches its row kernel only
+data/strips16 gate of tests/test_sample_data.py, and the ``pile``,
+``depth2d`` and ``fine-to-coarse`` commands on the CPU, with ``--score
+line`` and ``--fast``.  The JAX pile reaches its row kernel only
 on a TPU (no interpret mode), so the row kernel's numerics are held in
 tests/test_torch_sweep_rows.py; against the XLA path's per-pixel rounding
 depths agree within 1e-6 and scores within 2e-5."""
@@ -87,8 +88,44 @@ def test_pile_and_depth2d_commands_on_cpu(tmp_path):
         np.testing.assert_array_equal(res[name], x.numpy(), err_msg=name)
 
 
-@pytest.mark.parametrize("flag", [["--fast"], ["--score", "line"],
-                                  ["--sharded"], ["--no-pallas"]])
+@pytest.mark.parametrize("flag", [["--sharded"], ["--no-pallas"],
+                                  ["--ckpt-dir", "ckpt"]])
 def test_commands_refuse_what_is_not_ported(tmp_path, flag):
     with pytest.raises(NotImplementedError):
         cli.main(["pile", str(tmp_path), "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("command,flag", [
+    ("depth2d", ["--fast"]), ("depth2d", ["--score", "line"]),
+    ("pile", ["--fast"]), ("fine-to-coarse", ["--score", "line", "--fast"])])
+def test_commands_run_line_and_fast_on_cpu(tmp_path, command, flag):
+    """``--score line`` and ``--fast`` set the params as the JAX commands
+    do, and the commands write their npz."""
+    from remotesensingproject_tpu_torch.config import DepthParams
+    from remotesensingproject_tpu_torch.models.fine_to_coarse import (
+        FineToCoarse)
+
+    vol, _ = oracle.make_synthetic_lf(S=4, V=12, U=24, C=1, seed=2)
+    u8 = _write_frames(vol, tmp_path / "frames")
+    cli.main([command, str(tmp_path / "frames"), "--ext", "png", "--dmin",
+              "-1", "--dmax", "1.5", "--dim-d", "5", "--out",
+              str(tmp_path / "out"), "--device", "cpu", *flag])
+    params = DepthParams(score_version="line" if "line" in flag else "edge",
+                         fast="--fast" in flag)
+    name = command.replace("-", "_") + "_results.npz"
+    res = np.load(tmp_path / "out" / name)
+    if command == "pile":
+        want = Depth1DComputerPile(u8, -1.0, 1.5, 5, params=params,
+                                   device="cpu").run().best_depth
+        got = res["best_depth"]
+    elif command == "depth2d":
+        comp = Depth2DComputer(u8, -1.0, 1.5, 5, params=params, device="cpu")
+        comp.run()
+        want = comp.get_valid_depths_mask_s_v_u()
+        got = res["validity"]
+    else:
+        ftc = FineToCoarse(u8, -1.0, 1.5, 5, params=params, device="cpu")
+        ftc.run()
+        want = ftc.get_results()[0]
+        got = res["fused"]
+    np.testing.assert_array_equal(got, want.numpy())

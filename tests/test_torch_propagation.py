@@ -82,3 +82,26 @@ def test_propagate_without_sources_is_a_no_op():
     inp[4] = np.zeros_like(inp[4])
     claim, _, _, _, _, _, tgt_d, tgt_c = inp
     _check(_run_port(propagate, inp, 3, 1.0, 0.1), (claim, tgt_d, tgt_c))
+
+
+def test_propagate_three_payloads_bitwise_vs_xla():
+    """Line mode's third payload (line_conf) is painted under the same
+    condition as the other two."""
+    claim, frames, depth, rbar, sm, conf, tgt_d, tgt_c = _inputs(8, C=3)
+    rng = np.random.default_rng(18)
+    line = rng.uniform(0, 1, depth.shape).astype(np.float32)
+    tgt_l = rng.uniform(0, 1, tgt_d.shape).astype(np.float32)
+    srcs, tgts = (depth, conf, line), (tgt_d, tgt_c, tgt_l)
+    cl, targets = j_prop(jnp.asarray(claim), jnp.asarray(frames),
+                         jnp.asarray(depth), jnp.asarray(rbar),
+                         jnp.asarray(sm), jnp.int32(3), (DMIN, DMAX), 1.0,
+                         0.1, [(jnp.asarray(t), jnp.asarray(s))
+                               for t, s in zip(tgts, srcs)])
+    for fn in (propagate, propagate_cuda):
+        t_cl = torch.from_numpy(claim.copy())
+        t_tg = [torch.from_numpy(t.copy()) for t in tgts]
+        fn(t_cl, torch.from_numpy(frames), torch.from_numpy(depth),
+           torch.from_numpy(rbar), torch.from_numpy(sm), 3, 1.0, 0.1,
+           [(t, torch.from_numpy(s)) for t, s in zip(t_tg, srcs)])
+        assert (t_cl.numpy() != claim).any()
+        _check([t_cl.numpy(), *(t.numpy() for t in t_tg)], (cl, *targets))

@@ -4,7 +4,8 @@ the plain version's own intermediate values (``ops/sweep.py``):
 
 (a) per (pixel, candidate) the valid samples form one run in s, and the
     core's position arithmetic (ceil from floor, validity from the
-    position, the ceil column read only where it differs) gives the plain
+    position, the ceil column read only where it differs; under the
+    nearest rule one rounded column with weight 0) gives the plain
     version's samples bit for bit;
 (b) the core's item layout, emulated in PyTorch (groups of listed pixels,
     windows that compact the allowed (pixel, candidate) slots, each item
@@ -24,7 +25,7 @@ from remotesensingproject_tpu_torch.ops.sweep import (_mean_shift,
                                                       sweep_pile)
 from remotesensingproject_tpu_torch.ops.sweep_pallas_perpixel import (
     tile_quantized_bounds)
-from remotesensingproject_tpu_torch.types import DTYPE, f32
+from remotesensingproject_tpu_torch.types import DTYPE, f32, round_half_away
 
 GMIN, GMAX = -3.0, 4.0
 OUTS = ("best_score", "score_mean", "best_depth", "rbar")
@@ -120,6 +121,52 @@ def test_core_positions_match_plain_samples(C, mode):
         assert torch.equal(ok, valid), d
         got = torch.where(ok[..., None], val, torch.zeros(()))
         assert torch.equal(got, valraw), d
+
+
+def _core_nearest_samples(epis, delta, s_hat, slope):
+    """The core's staging under PcRuleNearest: column round_half_away(I),
+    weight t = 0 and no second column, so (1 - t) * a + t * a."""
+    V, S, U, C = epis.shape
+    ds = float(s_hat) - torch.arange(S, dtype=DTYPE)
+    u = torch.arange(U, dtype=DTYPE)
+    idx = u + (ds[None, :, None] * delta[:, None, :]) * slope
+    r = round_half_away(idx)
+    ok = (r >= 0) & (r <= U - 1)
+    i0 = torch.where(ok, r, torch.zeros_like(r)).to(torch.int64)
+    a = torch.gather(epis, 2, i0[..., None].expand(V, S, U, C))
+    t = torch.zeros(())
+    return (1.0 - t) * a + t * a, ok
+
+
+@pytest.mark.parametrize("C", [1, 4])
+@pytest.mark.parametrize("mode", ["uniform", "per_pixel"])
+@pytest.mark.parametrize("s_hat", [0, 3, 6])
+def test_core_nearest_positions_match_plain_samples(C, mode, s_hat):
+    """PcRuleNearest gives the plain nearest samples bit for bit, and its
+    valid samples form one run in s (the core's mean shift walks one run)."""
+    epis = _scene(C)
+    V, S, U, _ = epis.shape
+    lo, hi = _bounds(V, U, mode, seed=2)
+    slope = f32(0.5) if C == 4 else f32(1.0)
+    ds = float(s_hat) - torch.arange(S, dtype=DTYPE)
+    u_idx = torch.arange(U, dtype=DTYPE)
+    s = torch.arange(S)[None, :, None].expand(V, S, U)
+    halves = 0
+    for d in range(17):
+        delta = _candidate(lo, hi, d, 17)
+        _, valraw, valid = _radiances(epis, delta, ds, u_idx, slope,
+                                      "nearest")
+        val, ok = _core_nearest_samples(epis, delta, s_hat, slope)
+        assert torch.equal(ok, valid), d
+        got = torch.where(ok[..., None], val, torch.zeros(()))
+        assert torch.equal(got, valraw), d
+        card = valid.sum(1)
+        first = torch.where(valid, s, S).amin(1)
+        last = torch.where(valid, s, -1).amax(1)
+        assert torch.equal(torch.where(card > 0, last - first + 1, 0), card)
+        idx = u_idx + (ds[None, :, None] * delta[:, None, :]) * slope
+        halves += int((idx - torch.floor(idx) == 0.5).sum())
+    assert halves > 0  # some positions fell on a half: away from zero
 
 
 def _emulate_core(epis, lo, hi, dim_d, s_hat, params, active, plo=None,
