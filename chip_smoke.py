@@ -56,12 +56,24 @@ Phases, one line each (details on further lines):
 9. nearest interpolation (no anchor: finite maps, errors printed): the pile
    on the bench scene (pixel sweep), on data/strips16 and on the four-band
    scene (tile sweep), and one ``FineToCoarse`` run on the bench scene;
-10. a ``{"kernels": [...]}`` JSON line (the new modes of a kernel under
-   ``modes``), the card line again, and last
+10. ``Depth1DComputer`` (one EPI row, no median) on row V/2 of the bench
+   scene at D=120 (pixel sweep) and D=1030 (tile sweep, pixel mode) and of
+   the four-band scene (tile sweep): each result bitwise equal to its plain
+   version on the card and finite, the row sweep never launched, the
+   sweep's own time against its plain version and its bound, and
+   |depth - gt| P50 / P90 over the edge mask;
+11. the CLI on the card (``depth1d``, ``pile``, ``depth2d``, and
+   ``fine-to-coarse --ckpt-dir`` twice: the second run restores every level,
+   runs no pass and writes the first run's npz bit for bit) on data/strips16
+   into a temporary directory, with the PNGs each command must write; and
+   the host seconds of ``get_coloured_depth_maps()`` and of one checkpoint
+   save and load of level 0 of phase 3's pipeline (measured there);
+12. a ``{"kernels": [...]}`` JSON line (the new modes of a kernel under
+   ``modes``, depth1d's sweeps among them), the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each main path (phases 3, 4, 5,
-7, 8, 9) and read just after; each path fails if one of its kernels never
+7-11) and read just after; each path fails if one of its kernels never
 launched.  Exits non-zero, printing no result, without a CUDA device,
 without the package beside it, or when any phase fails.  Imports nothing
 of JAX.
@@ -69,14 +81,17 @@ of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import io
 import json
 import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -275,6 +290,12 @@ def sass_summary(lib_path, key="selective_median_kernel"):
     return out
 
 
+def _run(computer):
+    """``computer.run()``; returns the computer."""
+    computer.run()
+    return computer
+
+
 def main() -> int:
     import torch
 
@@ -283,7 +304,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     try:
+        from remotesensingproject_tpu_torch.cli import main as cli
         from remotesensingproject_tpu_torch.config import DEFAULT_PARAMS
+        from remotesensingproject_tpu_torch.models.depth1d import (
+            Depth1DComputer, depth1d_result)
         from remotesensingproject_tpu_torch.models.depth2d import (
             Depth2DComputer, _line_confidence)
         from remotesensingproject_tpu_torch.models.fine_to_coarse import \
@@ -309,14 +333,16 @@ def main() -> int:
             sweep_pile_tiles, tile_quantized_bounds)
         from remotesensingproject_tpu_torch.ops.sweep_pallas_pixel import (
             flops_per_sample_step, sweep_pile_pixel)
-        from remotesensingproject_tpu_torch.ops.edge_confidence import \
-            edge_confidence_volume
+        from remotesensingproject_tpu_torch.ops.edge_confidence import (
+            edge_confidence_frame, edge_confidence_volume)
         from remotesensingproject_tpu_torch.ops.normalize import \
             normalize_volume
         from remotesensingproject_tpu_torch.ops.pyramid import \
             cv_resize_shape
         from remotesensingproject_tpu_torch.types import (f32,
                                                           round_half_away)
+        from remotesensingproject_tpu_torch.utils.checkpoint import (
+            load_level, save_level)
         from remotesensingproject_tpu_torch.utils.io import (
             build_epis_from_imgs, read_imgs_from_folder)
     except ImportError as e:
@@ -738,7 +764,31 @@ def main() -> int:
     print(f"phase 3 pipeline: {wall:.2f}s wall, {len(ftc.computers)} levels "
           f"(V, S, U, passes, s) {level_line(ftc)}, launches {launches}, "
           f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del ftc
+    # host seconds of the renderer and of one checkpoint of level 0, for
+    # phase 11 (no kernel of the port runs in either)
+    t0 = time.perf_counter()
+    maps = ftc.get_coloured_depth_maps()
+    host_s = {"render": time.perf_counter() - t0}
+    ok_maps = maps.shape == (S, V, U, 3) and bool(maps.any())
+    del maps
+    level0 = ftc.computers[0]
+    before = {f.name: getattr(level0.state, f.name)
+              for f in dataclasses.fields(level0.state)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt:
+        t0 = time.perf_counter()
+        path = save_level(ckpt, 0, level0)
+        host_s["save"] = time.perf_counter() - t0
+        host_s["mb"] = os.path.getsize(path) / 1e6
+        t0 = time.perf_counter()
+        ok_ckpt = load_level(ckpt, 0, level0)
+        torch.cuda.synchronize()
+        host_s["load"] = time.perf_counter() - t0
+    ok_ckpt = ok_ckpt and all(torch.equal(getattr(level0.state, k), v)
+                              for k, v in before.items())
+    if not (ok_maps and ok_ckpt):
+        failures.append(f"phase 3: coloured maps ok {ok_maps}, level-0 "
+                        f"checkpoint round trip bitwise {ok_ckpt}")
+    del ftc, level0, before
     mask1 = edge_mask(vol)
     rmse, p90, edge_share = quality(fused, mask1)
     with open(os.path.join(HERE, "REF_ANCHOR.json")) as f:
@@ -950,6 +1000,121 @@ def main() -> int:
     del f, fused_n, vol, mask1
     if not finite_n or failures:
         print("phase 9 FAILED: " + "; ".join(failures))
+        return 1
+
+    # ---- phase 10: depth1d at full width (row V/2, V = 1) ----
+    vol, _ = synthetic_sequence(torch, dev)
+    vol4, _ = synthetic_sequence(torch, dev, gains=BAND_GAINS)
+    row = V // 2
+    rows = (("bench row, pixel sweep", vol[row], D, "sweep_pixel"),
+            ("bench row D=1030, tile sweep pixel mode", vol[row], 1030,
+             "sweep_tiles"),
+            ("four-band row, tile sweep pixel mode", vol4[row], D,
+             "sweep_tiles"))
+    for tag, epi_raw, dim_d, wrapper in rows:
+        comp1, wall_, launches_ = run_path(
+            f"phase 10 {tag}", (wrapper,),
+            lambda: _run(Depth1DComputer(epi_raw, DMIN, DMAX, dim_d,
+                                         device=dev)))
+        r1 = comp1.result
+        # the sweep alone, as depth1d calls it, against the plain sweep
+        # (whose result also gives the plain depth1d)
+        p1 = dataclasses.replace(comp1.params, fast=False)
+        ep1 = comp1.epi[None]
+        Us, Cs = ep1.shape[2], ep1.shape[3]
+        ce1, mask1d = edge_confidence_frame(comp1.epi[comp1.s_hat][None], p1)
+        act1 = mask1d.contiguous()
+        lo1, hi1 = (torch.full((1, Us), f32(b), device=dev)
+                    for b in (DMIN, DMAX))
+        cache = {}
+        if wrapper == "sweep_pixel":
+            run1 = lambda w: sweep_pile_pixel(ep1, DMIN, DMAX, dim_d,
+                                              comp1.s_hat, p1, act1, lo1,
+                                              hi1, work_count=w)
+        else:
+            run1 = lambda w: sweep_pile_tiles(ep1, lo1, hi1, dim_d,
+                                              comp1.s_hat, p1,
+                                              active_v_u=act1, work_count=w)
+        rec1, _ = check_kernel(
+            f"{wrapper} depth1d {tag}", run1,
+            lambda: cache.setdefault("res", sweep_pile(
+                ep1, lo1, hi1, dim_d, comp1.s_hat, p1)), act1,
+            (ep1.numel() + int(act1.sum()) + Us * (3 + Cs) + 2 * Us) * 4, Cs)
+        modes[wrapper][f"depth1d {tag}"] = dict(rec1, launches=launches_[
+            wrapper])
+        want1 = depth1d_result(ce1[0], mask1d[0], cache.pop("res"), p1)
+        same1 = all(torch.equal(a, b) for a, b in zip(r1, want1))
+        finite1 = all(bool(torch.isfinite(x.float()).all()) for x in r1)
+        m1 = r1.edge_mask
+        e1 = torch.abs(r1.best_depth - gt_row[0])[m1].double().cpu().numpy()
+        print(f"phase 10 depth1d {tag}: {wall_:.4f}s wall ({S}x{Us}x{Cs}, "
+              f"D={dim_d}), launches {launches_}, "
+              f"{float(m1.float().mean()) * 100:.1f}% px kept, |depth - gt| "
+              f"P50 {np.percentile(e1, 50):.4f} px, P90 "
+              f"{np.percentile(e1, 90):.4f} px; bitwise against the plain "
+              f"version {same1}; finite {finite1}")
+        if not (same1 and finite1 and e1.size):
+            failures.append(f"phase 10 {tag}: bitwise {same1}, finite "
+                            f"{finite1}")
+        if launches_["sweep_rows"]:
+            failures.append(f"phase 10 {tag}: the row sweep launched")
+    del vol, vol4, comp1, r1, want1, ep1
+    torch.cuda.empty_cache()
+    if failures:
+        print("phase 10 FAILED: " + "; ".join(failures))
+        return 1
+
+    # ---- phase 11: the CLI on the card, on data/strips16 ----
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        common = [data, "--ext", "png", "--dmin", "-1", "--dmax", "1.5",
+                  "--dim-d", "24"]
+        ckpt = os.path.join(tmp, "ckpt")
+        maps16 = [f"depth_map_{s_:03d}" for s_ in range(16)]
+        runs = (("depth1d", ["depth1d"], ("sweep_pixel",), ["coloured_epi"]),
+                ("pile", ["pile"], ("sweep_rows", "median"),
+                 ["disparity_map", "coloured_epi"]),
+                ("depth2d", ["depth2d"], ("sweep_pixel", "median", "paint"),
+                 [f"disparity_{s_:03d}" for s_ in range(16)]),
+                ("fine-to-coarse", ["fine-to-coarse", "--ckpt-dir", ckpt],
+                 ("sweep_pixel", "median", "paint"), maps16),
+                ("fine-to-coarse resumed", ["fine-to-coarse", "--ckpt-dir",
+                                            ckpt], (), maps16))
+        for i, (tag, argv, needs, pngs) in enumerate(runs):
+            out_dir = os.path.join(tmp, f"out{i}")
+            log = io.StringIO()
+            with contextlib.redirect_stdout(log):
+                _, wall_, launches_ = run_path(
+                    f"phase 11 {tag}", needs,
+                    lambda: cli.main([argv[0], *common, *argv[1:], "--out",
+                                      out_dir]))
+            missing = [n for n in pngs if not os.path.exists(
+                os.path.join(out_dir, n + ".png"))]
+            text = log.getvalue()
+            print(f"phase 11 {tag}: {wall_:.2f}s wall, launches "
+                  f"{launches_}, {len(pngs) - len(missing)}/{len(pngs)} "
+                  f"PNGs, {text.count(chr(10))} lines of output")
+            if missing:
+                failures.append(f"phase 11 {tag}: missing {missing}")
+            if tag == "fine-to-coarse resumed":
+                z = [np.load(os.path.join(tmp, f"out{k}",
+                                          "fine_to_coarse_results.npz"))
+                     for k in (i - 1, i)]
+                same = all(np.array_equal(z[0][k], z[1][k])
+                           for k in ("fused", "validity"))
+                restored = text.count("restored in") == 3 and \
+                    " done in " not in text and not any(launches_.values())
+                print(f"phase 11 resume: every level restored and no pass "
+                      f"run {restored}; npz bitwise equal to the first "
+                      f"run's {same}")
+                if not (same and restored):
+                    failures.append(f"phase 11 resume: restored {restored}"
+                                    f", npz equal {same}:\n{text}")
+    print(f"phase 11 host: get_coloured_depth_maps() on phase 3's pipeline "
+          f"({S} maps {V}x{U}) {host_s['render']:.3f}s; checkpoint of its "
+          f"level 0 (r_bar already dropped): save {host_s['save']:.3f}s "
+          f"({host_s['mb']:.1f} MB), load {host_s['load']:.3f}s")
+    if failures:
+        print("phase 11 FAILED: " + "; ".join(failures))
         return 1
 
     meta = {

@@ -10,6 +10,7 @@ the plain PyTorch version of every kernel runs instead.
 """
 
 from .config import DEFAULT_PARAMS, DEFAULT_PYRAMID, DepthParams, PyramidParams
+from .models.depth1d import Depth1DComputer
 from .models.depth2d import Depth2DComputer
 from .models.fine_to_coarse import FineToCoarse
 from .models.pile import Depth1DComputerPile
@@ -17,5 +18,5 @@ from .models.pile import Depth1DComputerPile
 __version__ = "0.1.0"
 
 __all__ = ["DEFAULT_PARAMS", "DEFAULT_PYRAMID", "DepthParams",
-           "PyramidParams", "Depth1DComputerPile", "Depth2DComputer",
-           "FineToCoarse"]
+           "PyramidParams", "Depth1DComputer", "Depth1DComputerPile",
+           "Depth2DComputer", "FineToCoarse"]

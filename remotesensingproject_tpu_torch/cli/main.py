@@ -1,14 +1,23 @@
 """CLI: ``python -m remotesensingproject_tpu_torch.cli.main <command>``.
 
-Counterpart of the ``pile``, ``depth2d`` and ``fine-to-coarse`` commands of
-``remotesensingproject_tpu/cli/main.py``, with the same arguments: read a
-folder of frames, run the computation, write its arrays to
-``pile_results.npz``, ``depth2d_results.npz`` or
-``fine_to_coarse_results.npz``.  Runs on CUDA unless ``--device`` names
-another device.  ``--score line`` runs line mode and ``--fast`` caps the
-pixel sweep's mean shift at 5 steps, as in the JAX commands.  The coloured
-PNGs, ``--sharded``, ``--ckpt-dir``, ``--no-pallas`` and the other commands
-are not ported yet (ROADMAP.md) and raise NotImplementedError.
+Counterpart of ``remotesensingproject_tpu/cli/main.py``, with the same
+commands and arguments, headless (windows become written PNGs):
+
+  read-img        read one image, print stats
+  build-epi       build and save one EPI (row ``--row``)
+  gallery         dump the frames scaled to bytes
+  depth1d         single-EPI depth (row ``--row``): coloured_epi.png
+  pile            one s_hat, all rows: disparity_map.png, coloured_epi.png
+  depth2d         full 2-D propagation: disparity_XXX.png
+  fine-to-coarse  the pyramid pipeline: depth_map_XXX.png
+  info            versions and the CUDA device
+
+Each depth command also writes its arrays to ``<command>_results.npz``
+and runs on CUDA unless ``--device`` names another device.  ``--score``
+and ``--fast`` set the params of every depth command (``depth1d``
+included); ``--ckpt-dir`` saves and resumes the levels of
+``fine-to-coarse``.  Not ported: the ``bench`` command, ``--sharded`` and
+``--no-pallas``, which raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -17,6 +26,10 @@ import argparse
 import dataclasses
 import sys
 import time
+
+NOT_PORTED = ("Not ported yet (ROADMAP.md): the bench command, --sharded "
+              "and --no-pallas (--device cpu runs the plain PyTorch "
+              "versions).")
 
 
 def _add_io_args(p):
@@ -37,7 +50,8 @@ def _add_depth_args(p):
                    help="not ported: use --device cpu for the plain "
                         "PyTorch versions")
     p.add_argument("--sharded", action="store_true", help="not ported")
-    p.add_argument("--ckpt-dir", default=None, help="not ported")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="checkpoint/resume directory (fine-to-coarse)")
     p.add_argument("--score", choices=["edge", "disp", "line"],
                    default="edge", help="confidence criterion")
     p.add_argument("--fast", action="store_true",
@@ -51,21 +65,26 @@ def _make_params(args):
     from ..config import DEFAULT_PARAMS
 
     for flag, name in ((args.no_pallas, "--no-pallas"),
-                       (args.sharded, "--sharded"),
-                       (args.ckpt_dir, "--ckpt-dir")):
+                       (args.sharded, "--sharded")):
         if flag:
             raise NotImplementedError(f"{name} is not ported yet")
     return dataclasses.replace(DEFAULT_PARAMS, score_version=args.score,
                                fast=args.fast)
 
 
+def _read_frames(args):
+    from ..utils import io
+
+    return io.read_imgs_from_folder(args.folder, args.ext,
+                                    transpose=args.transpose,
+                                    rotate_180=args.rotate180)
+
+
 def _read_volume(args):
     from ..utils import io
 
     t0 = time.perf_counter()
-    imgs = io.read_imgs_from_folder(args.folder, args.ext,
-                                    transpose=args.transpose,
-                                    rotate_180=args.rotate180)
+    imgs = _read_frames(args)
     print(f"read {imgs.shape[0]} frames {imgs.shape[1]}x{imgs.shape[2]} "
           f"in {time.perf_counter() - t0:.2f}s")
     return io.build_epis_from_imgs(imgs)
@@ -73,6 +92,64 @@ def _read_volume(args):
 
 def _numpy(**tensors):
     return {k: v.cpu().numpy() for k, v in tensors.items()}
+
+
+def _squeeze(a):
+    return a[..., 0] if a.shape[-1] == 1 else a
+
+
+def cmd_read_img(args):
+    from ..utils import io
+
+    img = io.read_img_from_file(args.folder, args.name, args.ext)
+    print(f"shape={img.shape} dtype={img.dtype} "
+          f"min={img.min()} max={img.max()}")
+    print(img[:3, :3])
+
+
+def cmd_build_epi(args):
+    from ..utils import io
+    from ..utils.plot import copy_and_scale_uchar, draw_red_lines
+
+    imgs = _read_frames(args)
+    row = args.row if args.row >= 0 else imgs.shape[1] // 2
+    epi = io.build_row_epi_from_imgs(imgs, row)
+    io.write_img(draw_red_lines(_squeeze(imgs[0]), fill_row_red=row),
+                 args.out, "epi_1st")
+    io.write_img(copy_and_scale_uchar(_squeeze(epi)), args.out, "epi")
+    print(f"EPI {epi.shape} written to {args.out}/")
+
+
+def cmd_gallery(args):
+    from ..utils import io
+    from ..utils.plot import ImageConverterUint8
+
+    imgs = _read_frames(args)
+    conv = ImageConverterUint8().fit(imgs[0], saturate=True)
+    for s in range(imgs.shape[0]):
+        io.write_img(_squeeze(conv.copy_and_scale(imgs[s])), args.out,
+                     f"frame_{s:03d}")
+    print(f"{imgs.shape[0]} frames written to {args.out}/")
+
+
+def cmd_depth1d(args):
+    from ..models.depth1d import Depth1DComputer
+    from ..utils import io
+
+    params = _make_params(args)
+    epis = _read_volume(args)
+    v = args.row if args.row >= 0 else epis.shape[0] // 2
+    t0 = time.perf_counter()
+    computer = Depth1DComputer(epis[v], args.dmin, args.dmax, args.dim_d,
+                               s_hat=args.s_hat,
+                               epi_scale_factor=args.scale_factor,
+                               params=params, device=args.device)
+    res = computer.run()
+    arrays = _numpy(**res._asdict())
+    print(f"depth1d (row {v}) in {time.perf_counter() - t0:.2f}s")
+    io.write_img(computer.get_coloured_epi(), args.out, "coloured_epi")
+    path = io.write_npz(args.out, "depth1d_results", **arrays)
+    print(f"PNG + npz written to {path}")
 
 
 def cmd_pile(args):
@@ -89,20 +166,23 @@ def cmd_pile(args):
     res = computer.run()
     arrays = _numpy(**res._asdict())
     print(f"pile in {time.perf_counter() - t0:.2f}s")
+    io.write_img(computer.get_disparity_map(), args.out, "disparity_map")
+    io.write_img(computer.get_coloured_epi(), args.out, "coloured_epi")
     path = io.write_npz(args.out, "pile_results", **arrays)
-    print(f"npz written to {path}")
+    print(f"PNGs + npz written to {path}")
 
 
 def cmd_depth2d(args):
     from ..models.depth2d import Depth2DComputer
     from ..utils import io
+    from ..utils.plot import apply_colormap, copy_and_scale_uchar
 
     params = _make_params(args)
     epis = _read_volume(args)
     t0 = time.perf_counter()
     computer = Depth2DComputer(
         epis, args.dmin, args.dmax, args.dim_d,
-        epi_scale_factor=args.scale_factor, params=params,
+        epi_scale_factor=args.scale_factor, params=params, verbose=True,
         device=args.device)
     state = computer.run()
     arrays = _numpy(best_depth=state.best_depth,
@@ -111,8 +191,13 @@ def cmd_depth2d(args):
                     validity=computer.get_valid_depths_mask_s_v_u())
     print(f"depth2d in {time.perf_counter() - t0:.2f}s "
           f"({computer.passes_run} passes)")
+    depths, masks = arrays["best_depth"], arrays["validity"]
+    for s in range(depths.shape[0]):
+        rgb = apply_colormap(copy_and_scale_uchar(depths[s]))
+        rgb[~masks[s]] = 0
+        io.write_img(rgb, args.out, f"disparity_{s:03d}")
     path = io.write_npz(args.out, "depth2d_results", **arrays)
-    print(f"npz written to {path}")
+    print(f"maps + npz written to {path}")
 
 
 def cmd_fine_to_coarse(args):
@@ -125,23 +210,70 @@ def cmd_fine_to_coarse(args):
     ftc = FineToCoarse(epis, args.dmin, args.dmax, args.dim_d,
                        epi_scale_factor=args.scale_factor, params=params,
                        verbose=True, device=args.device)
-    ftc.run()
+    ftc.run(ckpt_dir=args.ckpt_dir)
+    maps = ftc.get_coloured_depth_maps()
     fused, validity = ftc.get_results()
     arrays = _numpy(fused=fused, validity=validity)
     print(f"fine-to-coarse in {time.perf_counter() - t0:.2f}s")
+    for s in range(maps.shape[0]):
+        io.write_img(maps[s], args.out, f"depth_map_{s:03d}")
     path = io.write_npz(args.out, "fine_to_coarse_results", **arrays)
-    print(f"npz written to {path}")
+    print(f"maps + npz written to {path}")
+
+
+def cmd_info(args):
+    import torch
+
+    import remotesensingproject_tpu_torch as rs
+
+    print(f"remotesensingproject_tpu_torch {rs.__version__}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    if torch.cuda.is_available():
+        print(f"cuda available: {torch.cuda.device_count()} device(s), "
+              f"{torch.cuda.get_device_name(0)}")
+    else:
+        print("cuda available: no")
+
+
+def cmd_bench(args):
+    raise NotImplementedError("the bench command is not ported yet")
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(prog="remotesensingproject_tpu_torch")
+    ap = argparse.ArgumentParser(prog="remotesensingproject_tpu_torch",
+                                 epilog=NOT_PORTED)
     sub = ap.add_subparsers(dest="cmd", required=True)
-    for name, fn in (("pile", cmd_pile), ("depth2d", cmd_depth2d),
+
+    p = sub.add_parser("read-img")
+    p.add_argument("folder")
+    p.add_argument("name")
+    p.add_argument("--ext", default="tif")
+    p.set_defaults(fn=cmd_read_img)
+
+    p = sub.add_parser("build-epi")
+    _add_io_args(p)
+    p.add_argument("--row", type=int, default=-1)
+    p.set_defaults(fn=cmd_build_epi)
+
+    p = sub.add_parser("gallery")
+    _add_io_args(p)
+    p.set_defaults(fn=cmd_gallery)
+
+    for name, fn in (("depth1d", cmd_depth1d), ("pile", cmd_pile),
+                     ("depth2d", cmd_depth2d),
                      ("fine-to-coarse", cmd_fine_to_coarse)):
         p = sub.add_parser(name)
         _add_io_args(p)
         _add_depth_args(p)
+        if name == "depth1d":
+            p.add_argument("--row", type=int, default=-1)
         p.set_defaults(fn=fn)
+
+    p = sub.add_parser("info")
+    p.set_defaults(fn=cmd_info)
+    p = sub.add_parser("bench", help="not ported")
+    p.set_defaults(fn=cmd_bench)
+
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -40,6 +40,7 @@ same semantics.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Mapping, Optional, Tuple
 
 import numpy as np
@@ -56,6 +57,7 @@ from ..ops.sweep_pallas_perpixel import sweep_pile_tiles, \
     tile_quantized_bounds
 from ..ops.sweep_pallas_pixel import MAX_DIM_D, sweep_pile_pixel
 from ..types import DTYPE, f32, resolve_device
+from ..utils.plot import coloured_epi_2d, disparity_map_image
 
 
 @dataclasses.dataclass
@@ -103,6 +105,9 @@ def center_outward_schedule(dim_s: int) -> list:
 
 
 COARSE_MODES = ("tile", "pixel")
+#: passes between two progress lines of a verbose run (the JAX package's
+#: ``pass_chunk``)
+PASS_CHUNK = 8
 
 
 def sweep_pass(epis: torch.Tensor, active: torch.Tensor, s_hat: int,
@@ -252,12 +257,16 @@ class Depth2DComputer:
 
     Runs on CUDA unless ``device`` names another device.  ``coarse_mode``
     picks the tile kernel's grids at bounds-edited levels (see
-    :func:`sweep_pass`); the pixel kernel's route ignores it."""
+    :func:`sweep_pass`); the pixel kernel's route ignores it.
+    ``early_stop=False`` runs every pass of the schedule; ``verbose``
+    prints a progress line every :data:`PASS_CHUNK` passes, as the JAX
+    package does after each chunk of passes (one more host sync each)."""
 
     def __init__(self, epis_v_s_u_c, dmin: float, dmax: float, dim_d: int,
                  epi_scale_factor: float = -1.0,
-                 params: DepthParams = DEFAULT_PARAMS, device=None,
-                 coarse_mode: str = "tile"):
+                 params: DepthParams = DEFAULT_PARAMS,
+                 verbose: bool = False, early_stop: bool = True,
+                 device=None, coarse_mode: str = "tile"):
         if coarse_mode not in COARSE_MODES:
             raise ValueError(f"coarse_mode must be one of {COARSE_MODES}")
         self.coarse_mode = coarse_mode
@@ -270,6 +279,8 @@ class Depth2DComputer:
         self.dmin = float(dmin)
         self.dmax = float(dmax)
         self.params = params
+        self.verbose = verbose
+        self.early_stop = early_stop
         self.accept_all = False
         # per-pixel bounds, editable by the pyramid; materialized lazily
         self._dmin_arr: Optional[torch.Tensor] = None
@@ -333,14 +344,27 @@ class Depth2DComputer:
         if self._bounds_edited:
             bounds = dict(dmin_s_v_u=self.dmin_s_v_u,
                           dmax_s_v_u=self.dmax_s_v_u)
+        schedule = center_outward_schedule(S)
         self.passes_run = 0
-        for s_hat in center_outward_schedule(S):
+        t_chunk = time.perf_counter()
+        for s_hat in schedule:
             _pass_fn(self.epis, frames, state, s_hat, dim_d=self.dim_d,
                      params=self.params, d_bounds=(self.dmin, self.dmax),
                      coarse_mode=self.coarse_mode, **bounds)
             self.passes_run += 1
             # a pass on a state with nothing left to claim is a no-op
-            if not bool(torch.any(state.ce_mask & state.claim)):
+            done = self.early_stop and not bool(
+                torch.any(state.ce_mask & state.claim))
+            if self.verbose and (done or self.passes_run % PASS_CHUNK == 0
+                                 or self.passes_run == len(schedule)):
+                now = time.perf_counter()
+                left = int(torch.sum(state.ce_mask & state.claim))
+                print(f"passes {self.passes_run}/{len(schedule)} "
+                      f"(+{now - t_chunk:.1f}s, remaining px {left})")
+                t_chunk = now
+            if done:
+                if self.verbose:
+                    print(f"early stop after {self.passes_run} passes")
                 break
         self.state = state
         return state
@@ -355,12 +379,37 @@ class Depth2DComputer:
         the edge branch thresholds the C_e values, not the stored mask."""
         if self.accept_all:
             return torch.ones_like(self.state.ce, dtype=torch.bool)
+        if self.params.score_version == "edge":
+            return self.state.ce > self.params.edge_score_threshold
+        return self._criterion_mask()
+
+    def get_epis(self) -> torch.Tensor:
+        return self.epis
+
+    def get_coloured_epi(self, v: int = -1, colormap: str = "jet"):
+        """Slope-coloured EPI at row v
+        (Depth2DComputer::get_coloured_epi,
+        rslf_depth_computation.hpp:807-860)."""
+        if v < 0:
+            v = self.epis.shape[0] // 2
+        return coloured_epi_2d(self.state.best_depth,
+                               self._criterion_mask(), v, colormap)
+
+    def get_disparity_map(self, s: int = -1, colormap: str = "jet"):
+        """Colormapped disparity map at frame s
+        (rslf_depth_computation.hpp:862-891)."""
+        if s < 0:
+            s = self.epis.shape[1] // 2
+        return disparity_map_image(self.state.best_depth[s],
+                                   self._criterion_mask()[s], colormap)
+
+    def _criterion_mask(self) -> torch.Tensor:
+        """The painting criterion per score_version
+        (rslf_depth_computation.hpp:836-846,865-880): edge takes the stored
+        mask; disp and line threshold their confidences."""
         p = self.params
         if p.score_version == "disp":
             return self.state.disp_conf > p.disp_score_threshold
         if p.score_version == "line":
             return self.state.line_conf > p.line_score_threshold
-        return self.state.ce > p.edge_score_threshold
-
-    def get_epis(self) -> torch.Tensor:
-        return self.epis
+        return self.state.ce_mask

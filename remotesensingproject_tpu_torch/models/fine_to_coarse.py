@@ -17,7 +17,7 @@ the JAX package, and clamped to [0, 255].
 from __future__ import annotations
 
 import time
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,19 +26,28 @@ from ..config import DEFAULT_PARAMS, DEFAULT_PYRAMID, DepthParams, \
     PyramidParams
 from ..ops.pyramid import bounds_from_parent, downsample_epis, fuse_disp_maps
 from ..types import DTYPE, resolve_device
+from ..utils.checkpoint import load_level, save_level
+from ..utils.plot import (ImageConverterUint8, coloured_depth_maps,
+                          depth_pyramid_images, side_by_side)
 from .depth2d import Depth2DComputer, _as_tensor
 
 
 class FineToCoarse:
     """Runs on CUDA unless ``device`` names another device.
-    ``coarse_mode`` is handed to every level's Depth2DComputer."""
+    ``coarse_mode`` and ``early_stop`` are handed to every level's
+    Depth2DComputer.  ``verbose`` prints a line per level;
+    ``pass_progress`` (default: ``verbose``) also prints the levels' pass
+    progress."""
 
     def __init__(self, epis_v_s_u_c, dmin: float, dmax: float, dim_d: int,
                  epi_scale_factor: float = -1.0,
                  params: DepthParams = DEFAULT_PARAMS,
                  pyramid: PyramidParams = DEFAULT_PYRAMID,
-                 verbose: bool = False, device=None,
+                 early_stop: bool = True, verbose: bool = False,
+                 pass_progress: Optional[bool] = None, device=None,
                  coarse_mode: str = "tile"):
+        if pass_progress is None:
+            pass_progress = verbose
         self.device = resolve_device(device)
         epis = _as_tensor(epis_v_s_u_c, self.device)
         if epis.dim() == 3:
@@ -69,6 +78,7 @@ class FineToCoarse:
             lvl_input = level.to(torch.uint8) if self.is_uint8 else level
             self.computers.append(Depth2DComputer(
                 lvl_input, dmin, dmax, dim_d, epi_scale_factor, lvl_params,
+                verbose=pass_progress, early_stop=early_stop,
                 device=self.device, coarse_mode=coarse_mode))
             self.level_params.append(lvl_params)
             level = downsample_epis(level)
@@ -78,15 +88,26 @@ class FineToCoarse:
         if pyramid.accept_all_last_scale:
             self.computers[-1].set_accept_all(True)
 
-    def run(self):
-        """Run all levels fine to coarse, deriving per-pixel bounds."""
+    def run(self, ckpt_dir: Optional[str] = None):
+        """Run all levels fine to coarse, deriving per-pixel bounds.
+
+        Args:
+          ckpt_dir: when given, each level found there is restored instead
+            of run (it runs no pass), and each level run is saved there
+            (``utils.checkpoint``, the JAX package's file format).
+        """
         self.level_seconds = []
         for p, computer in enumerate(self.computers):
             t0 = time.perf_counter()
-            computer.run()
+            restored = bool(ckpt_dir) and load_level(ckpt_dir, p, computer)
+            if not restored:
+                computer.run()
+                if ckpt_dir:
+                    save_level(ckpt_dir, p, computer)
             self.level_seconds.append(time.perf_counter() - t0)
             if self.verbose:
-                print(f"level {p} done in {self.level_seconds[-1]:.2f}s "
+                what = "restored" if restored else "done"
+                print(f"level {p} {what} in {self.level_seconds[-1]:.2f}s "
                       f"({computer.passes_run} passes)")
             if p < len(self.computers) - 1:
                 nxt = self.computers[p + 1]
@@ -105,3 +126,55 @@ class FineToCoarse:
             [c.get_depths_s_v_u() for c in self.computers],
             [c.get_valid_depths_mask_s_v_u() for c in self.computers],
             self.pyramid.final_median_filter_size)
+
+    def get_coloured_depth_maps(self, colormap: str = "jet",
+                                saturate: bool = True) -> np.ndarray:
+        """Colormapped fused maps ``[S, V, U, 3]`` uint8
+        (rslf_fine_to_coarse.hpp:324-377)."""
+        fused, validity = self.get_results()
+        return coloured_depth_maps(fused, validity,
+                                   self.computers[0].get_epis(), self.params,
+                                   colormap, saturate)
+
+    def get_coloured_depth_maps_and_imgs(self, colormap: str = "jet",
+                                         saturate: bool = True):
+        """Depth maps juxtaposed with the input frames
+        (rslf_fine_to_coarse.hpp:380-429)."""
+        maps = self.get_coloured_depth_maps(colormap, saturate)
+        epis = self.computers[0].get_epis().cpu().numpy()
+        conv = ImageConverterUint8().fit(epis[:, 0], saturate=False)
+        out = []
+        for s in range(maps.shape[0]):
+            frame = conv.copy_and_scale(epis[:, s])
+            if frame.shape[-1] == 1:
+                frame = frame[..., 0]
+            out.append(side_by_side(frame, maps[s]))
+        return out
+
+    def get_coloured_epi_pyr(self, v: int = -1, colormap: str = "jet",
+                             saturate: bool = True):
+        """Per-level slope-coloured EPI at (scaled) row v
+        (rslf_fine_to_coarse.hpp:431-487)."""
+        V0 = self.computers[0].epis.shape[0]
+        if v < 0:
+            v = int(round(V0 / 2.0))  # half to even, as in the JAX package
+        slices, masks = [], []
+        for c in self.computers:
+            vs = int(round(v * c.epis.shape[0] / V0))
+            d = c.get_depths_s_v_u()[:, vs, :]
+            m = c.get_valid_depths_mask_s_v_u()[:, vs, :]
+            slices.append(torch.where(m, d, torch.zeros((), dtype=d.dtype,
+                                                        device=d.device)))
+            masks.append(m)
+        return depth_pyramid_images(slices, masks, saturate, colormap)
+
+    def get_coloured_depth_pyr(self, s: int = -1, colormap: str = "jet",
+                               saturate: bool = True):
+        """Per-level colormapped disparity maps at frame s
+        (rslf_fine_to_coarse.hpp:490-518)."""
+        S = self.computers[0].epis.shape[1]
+        if s < 0:
+            s = int(round(S / 2.0))  # half to even, as in the JAX package
+        slices = [c.get_depths_s_v_u()[s] for c in self.computers]
+        masks = [c.get_valid_depths_mask_s_v_u()[s] for c in self.computers]
+        return depth_pyramid_images(slices, masks, saturate, colormap)

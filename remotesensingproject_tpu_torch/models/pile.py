@@ -24,6 +24,7 @@ from ..ops.median_pallas import selective_median_cuda
 from ..ops.normalize import normalize_volume
 from ..ops.sweep_pallas import sweep_pile_rows
 from ..types import resolve_device
+from ..utils.plot import coloured_epi_from_pile, disparity_map_image
 from .depth2d import _as_tensor, sweep_pass
 
 
@@ -93,3 +94,15 @@ class Depth1DComputerPile:
 
     def get_depths(self) -> torch.Tensor:
         return self.result.best_depth
+
+    def get_coloured_epi(self, v: int = -1, colormap: str = "jet"):
+        """Colour EPI at row v (rslf_depth_computation.hpp:567-618)."""
+        if v < 0:
+            v = self.epis.shape[0] // 2
+        return coloured_epi_from_pile(self, v, colormap)
+
+    def get_disparity_map(self, colormap: str = "jet"):
+        """Colormapped disparity map, masked by edge confidence
+        (rslf_depth_computation.hpp:620-641)."""
+        return disparity_map_image(self.result.best_depth,
+                                   self.result.edge_mask, colormap)

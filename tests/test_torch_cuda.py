@@ -622,3 +622,66 @@ def test_depth2d_modes_on_card_match_cpu(dev, C, mode):
                                        atol=atol)
         assert torch.equal(out.get_valid_depths_mask_s_v_u().cpu(),
                            ref.get_valid_depths_mask_s_v_u())
+
+
+# ---- depth1d: one EPI row (V = 1) on the pixel and the tile kernel ----
+
+def _depth1d_plain(comp):
+    """The plain version of ``comp.run()`` on the same device: the plain
+    sweep (uncapped, as depth1d sweeps) on uniform [1, U] bounds."""
+    import dataclasses
+
+    from remotesensingproject_tpu_torch.models.depth1d import depth1d_result
+    from remotesensingproject_tpu_torch.ops.edge_confidence import (
+        edge_confidence_frame)
+
+    p = comp.params
+    ce, mask = edge_confidence_frame(comp.epi[comp.s_hat][None], p)
+    U = comp.epi.shape[1]
+    lo, hi = (torch.full((1, U), b, device=comp.epi.device)
+              for b in (comp.dmin, comp.dmax))
+    res = sweep_pile(comp.epi[None], lo, hi, comp.dim_d, comp.s_hat,
+                     dataclasses.replace(p, fast=False))
+    return depth1d_result(ce[0], mask[0], res, p)
+
+
+@pytest.mark.parametrize("C,D,params,wrapper", [
+    (1, 24, DepthParams(), "pixel"), (3, 24, DepthParams(fast=True), "pixel"),
+    (1, 24, NEAREST, "pixel"), (4, 24, DepthParams(), "tiles"),
+    (1, 1030, DepthParams(), "tiles"), (4, 9, NEAREST, "tiles")])
+def test_depth1d_bitwise_on_both_routes(dev, C, D, params, wrapper):
+    """Depth1DComputer on the card against its plain version on the card,
+    bitwise: the pixel kernel at C in {1, 3}, D <= 1024, the tile kernel in
+    pixel mode otherwise, the row kernel never."""
+    from remotesensingproject_tpu_torch import Depth1DComputer
+
+    epi = _vol(C, S=9, V=4, U=96, seed=C + D).numpy()[1]
+    epi[:, 30:38] = 0.01  # a shadow: holes in the edge mask
+    wrappers = {"pixel": sweep_pile_pixel, "tiles": sweep_pile_tiles,
+                "rows": sweep_pile_rows}
+    n0 = {k: w.launches for k, w in wrappers.items()}
+    comp = Depth1DComputer(epi, -1.0, 1.5, D, params=params, device=dev)
+    got = comp.run()
+    moved = {k for k, w in wrappers.items() if w.launches != n0[k]}
+    assert moved == {wrapper}
+    want = _depth1d_plain(comp)
+    assert got.edge_mask.any() and not got.edge_mask.all()
+    for name, a, b in zip(got._fields, got, want):
+        assert torch.equal(a, b), name
+        assert a.is_cuda
+
+
+def test_depth1d_on_card_at_c3_matches_cpu(dev):
+    """V = 1 at C = 3 through the pixel kernel against the CPU run, within
+    tests/test_torch_depth1d.py's tolerances (the PyTorch operations around
+    the kernel round in their own order on each device)."""
+    from remotesensingproject_tpu_torch import Depth1DComputer
+
+    epi = _vol(3, S=9, V=4, U=96, seed=11).numpy()[2]
+    ref = Depth1DComputer(epi, -1.0, 1.5, 24, device="cpu").run()
+    out = Depth1DComputer(epi, -1.0, 1.5, 24, device=dev).run()
+    assert torch.equal(out.edge_mask.cpu(), ref.edge_mask)
+    for name, atol in (("edge_confidence", 1e-6), ("best_depth", 1e-6),
+                       ("disp_confidence", 2e-5), ("rbar", 2e-5)):
+        torch.testing.assert_close(getattr(out, name).cpu(),
+                                   getattr(ref, name), rtol=0, atol=atol)

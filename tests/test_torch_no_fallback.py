@@ -79,6 +79,20 @@ def test_pile_and_depth2d_raise_without_cuda(no_cuda, tmp_path, command):
     assert not (tmp_path / "out").exists()
 
 
+def test_depth1d_raises_without_cuda(no_cuda, tmp_path):
+    from remotesensingproject_tpu_torch import Depth1DComputer
+
+    vol, _ = oracle.make_synthetic_lf(S=4, V=12, U=24, C=3, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Depth1DComputer(vol[3], -1.0, 1.5, 5)
+    assert Depth1DComputer(vol[3], -1.0, 1.5, 5, device="cpu").epi.is_cpu
+    _write_frames(vol[..., :1], tmp_path / "frames")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["depth1d", str(tmp_path / "frames"), "--ext", "png",
+                  "--out", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
+
+
 class _OnCard:
     """Stands in for a CUDA tensor where there is no card: the shape, type
     and layout of a CPU tensor, reported on ``cuda:0``."""

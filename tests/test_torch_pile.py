@@ -89,8 +89,10 @@ def test_pile_and_depth2d_commands_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--sharded"], ["--no-pallas"],
-                                  ["--ckpt-dir", "ckpt"]])
+                                  ["--ckpt-dir", "ckpt", "--sharded"]])
 def test_commands_refuse_what_is_not_ported(tmp_path, flag):
+    """``--sharded`` and ``--no-pallas`` raise, also beside ``--ckpt-dir``
+    (which is ported: tests/test_torch_cli.py)."""
     with pytest.raises(NotImplementedError):
         cli.main(["pile", str(tmp_path), "--device", "cpu", *flag])
 
