@@ -68,15 +68,34 @@ Phases, one line each (details on further lines):
    into a temporary directory, with the PNGs each command must write; and
    the host seconds of ``get_coloured_depth_maps()`` and of one checkpoint
    save and load of level 0 of phase 3's pipeline (measured there);
-12. a ``{"kernels": [...]}`` JSON line (the new modes of a kernel under
-   ``modes``, depth1d's sweeps among them), the card line again, and last
-   ``{"ok": true, "device": {...}}``.
+12. the (v, u) mesh's kernel operands at the first level-0 pass of the
+   bench scene, on the right half of its columns haloed as rank 1 of a
+   (1, 2) mesh haloes them: the pixel and the tile sweep (pixel mode) with
+   the image's ``u_valid`` window, the paint from sources haloed by pado
+   with ``u_origin``; each bitwise against its plain version and against
+   the whole scene's kernel result on the half, with its time and bound;
+13. the sharded fine-to-coarse on the bench scene (``FineToCoarse(...,
+   mesh=...)``) at world 1 over NCCL and at world 2 over gloo, both ranks
+   on the one card (``torch.multiprocessing``, spawn), and a (1, 2) (v, u)
+   mesh on level 0 (``ShardedDepth2DComputer``) in the world of two: the
+   fused map and validity bitwise equal to phase 3's (so phase 3's
+   REF_ANCHOR gate holds), the mesh's level-0 state bitwise equal to phase
+   3's level 0; wall time (the second run in each rank), backend, each
+   rank's launches, and what one summed count, one median row halo and
+   one paint u-halo cost at level-0 sizes;
+14. ``--no-pallas``: ``FineToCoarse(..., use_pallas=False)`` and the CLI's
+   ``fine-to-coarse --no-pallas`` on data/strips16 on the card: no kernel
+   launched, the results on the card, the CLI's npz equal to the API's,
+   and the gate of tests/test_sample_data.py on the fused map;
+15. a ``{"kernels": [...]}`` JSON line (the new modes of a kernel under
+   ``modes``, depth1d's sweeps and the mesh's operands among them), the
+   card line again, and last ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each main path (phases 3, 4, 5,
-7-11) and read just after; each path fails if one of its kernels never
-launched.  Exits non-zero, printing no result, without a CUDA device,
-without the package beside it, or when any phase fails.  Imports nothing
-of JAX.
+7-11, 13's runs in each rank, 14) and read just after; each path fails if
+one of its kernels never launched (phase 14 if any launched).  Exits
+non-zero, printing no result, without a CUDA device, without the package
+beside it, or when any phase (or any rank) fails.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -84,6 +103,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import hashlib
 import io
 import json
 import os
@@ -229,14 +249,15 @@ def bound(nbytes, nflops):
 
 
 def kernel_name(mangled: str):
-    """``name<int args[,position rule]>`` of a mangled kernel name, None if
-    none is in it (each instantiation apart: ``selective_median_kernel<5,1>``,
-    ``sweep_pc_kernel<1,PcRuleNearest>``)."""
-    m = re.search(r"\d([a-z_]+_kernel)((?:ILi-?\d+E)?(?:Li-?\d+E)*)",
+    """``name<int and bool args[,position rule]>`` of a mangled kernel name
+    (a bool as 0 or 1), None if none is in it (each instantiation apart:
+    ``selective_median_kernel<5,1>``, ``sweep_pc_kernel<1,PcRuleNearest>``,
+    ``paint_kernel<1,0>``)."""
+    m = re.search(r"\d([a-z_]+_kernel)((?:IL[ib]-?\d+E)?(?:L[ib]-?\d+E)*)",
                   mangled)
     if not m:
         return None
-    args = re.findall(r"Li(-?\d+)E", m.group(2))
+    args = re.findall(r"L[ib](-?\d+)E", m.group(2))
     # a type argument: its length, then its name (``11PcRulePixel``)
     rest = mangled[m.end():]
     args += [rest[t.start(2):t.start(2) + int(t.group(1))]
@@ -296,6 +317,145 @@ def _run(computer):
     return computer
 
 
+def u_block(torch, x, u0, width, halo, axis):
+    """Columns [u0 - halo, u0 + width + halo) of ``x`` along ``axis``,
+    zeros beyond the image: a rank's u-haloed block."""
+    U_ = x.shape[axis]
+    a, b = u0 - halo, u0 + width + halo
+    core = x.narrow(axis, max(a, 0), min(b, U_) - max(a, 0))
+
+    def zeros(n):
+        shape = list(x.shape)
+        shape[axis] = n
+        return torch.zeros(shape, dtype=x.dtype, device=x.device)
+
+    return torch.cat([zeros(max(0, -a)), core, zeros(max(0, b - U_))],
+                     axis).contiguous()
+
+
+def digest(t) -> str:
+    """A hash of a tensor's dtype, shape and bytes (bitwise comparisons
+    across processes)."""
+    a = t.detach().contiguous().cpu().numpy()
+    h = hashlib.sha256(f"{a.dtype}{a.shape}".encode())
+    h.update(a.tobytes())
+    return h.hexdigest()[:20]
+
+
+#: the level-0 planes phase 13's (1, 2) mesh holds against phase 3's (r_bar
+#: is dropped once a level has run)
+LEVEL0_PLANES = ("ce", "ce_mask", "disp_conf", "best_depth", "claim")
+
+
+def wrappers_of():
+    """The kernel wrappers, by kernel name."""
+    from remotesensingproject_tpu_torch.ops.median_pallas import \
+        selective_median_cuda
+    from remotesensingproject_tpu_torch.ops.propagation_pallas import \
+        propagate_cuda
+    from remotesensingproject_tpu_torch.ops.sweep_pallas import \
+        sweep_pile_rows
+    from remotesensingproject_tpu_torch.ops.sweep_pallas_perpixel import \
+        sweep_pile_tiles
+    from remotesensingproject_tpu_torch.ops.sweep_pallas_pixel import \
+        sweep_pile_pixel
+    return {"sweep_pixel": sweep_pile_pixel, "sweep_rows": sweep_pile_rows,
+            "sweep_tiles": sweep_pile_tiles,
+            "median": selective_median_cuda, "paint": propagate_cuda}
+
+
+def sharded_rank(rank, out, with_2d):
+    """One rank of phase 13 in a started process group (every rank on
+    cuda:0): the sharded fine-to-coarse on the bench scene over the 1-D
+    mesh of every rank, then with ``with_2d`` level 0 on a (1, world) mesh;
+    writes ``rank<r>_<world>.json`` with walls, launches and digests."""
+    import torch
+    import torch.distributed as dist
+
+    from remotesensingproject_tpu_torch.config import DEFAULT_PARAMS
+    from remotesensingproject_tpu_torch.models.fine_to_coarse import \
+        FineToCoarse
+    from remotesensingproject_tpu_torch.parallel.driver import \
+        ShardedDepth2DComputer
+    from remotesensingproject_tpu_torch.parallel.mesh import (make_mesh,
+                                                              make_mesh_2d)
+    from remotesensingproject_tpu_torch.parallel.sharding import \
+        exchange_halos
+    from remotesensingproject_tpu_torch.parallel.sharding2d import \
+        halo_widths
+
+    dev = torch.device("cuda:0")
+    world = dist.get_world_size()
+    wrappers = wrappers_of()
+    vol, _ = synthetic_sequence(torch, dev)
+    res = {"rank": rank, "backend": dist.get_backend()}
+
+    def path(fn):
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0, {k: w.launches
+                                             for k, w in wrappers.items()}
+
+    def ftc():
+        f = FineToCoarse(vol, DMIN, DMAX, D, params=DEFAULT_PARAMS,
+                         mesh=make_mesh())
+        f.run()
+        return f.get_results(), [c.passes_run for c in f.computers]
+
+    ftc()  # the first run of a new process also loads and allocates
+    ((fused, validity), passes), wall, launches = path(ftc)
+    res["ftc"] = dict(wall=wall, launches=launches, passes=passes,
+                      fused=digest(fused), validity=digest(validity))
+    del fused, validity
+
+    def collective_ms(fn, reps=20):
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    # what a pass's collectives cost at level 0: the summed count, the
+    # median's row halo (on the 1-D mesh) and, on a (1, world) mesh, the
+    # paint's u-halo of the sources
+    mesh = make_mesh()
+    n = torch.ones(1, dtype=torch.int64, device=dev)
+    rows = -(-V // world)
+    src = torch.rand((rows, U), device=dev)
+    msk = src > 0.5
+    res["collective_ms"] = dict(
+        count=collective_ms(lambda: (dist.all_reduce(n), int(n))),
+        median_halo=collective_ms(lambda: exchange_halos(
+            [src, src[..., None], msk], 2, 0, mesh.v_ring,
+            [0.0, 0.0, False])))
+    if with_2d:
+        mesh2 = make_mesh_2d((1, world))
+        _, pado = halo_widths(S, (DMIN, DMAX), DEFAULT_PARAMS.slope_factor)
+        cols = torch.rand((V, U // world), device=dev)
+        # the pass's source planes: depth, r_bar, mask, disp_conf
+        res["collective_ms"]["paint_halo_2d"] = collective_ms(
+            lambda: exchange_halos([cols, cols[..., None], cols > 0.5, cols],
+                                   pado, 1, mesh2.u_ring,
+                                   [0.0, 0.0, False, 0.0]))
+        c, wall, launches = path(lambda: _run(ShardedDepth2DComputer(
+            vol, DMIN, DMAX, D, mesh=mesh2, params=DEFAULT_PARAMS)))
+        st = c.state
+        res["mesh_1x2"] = dict(wall=wall, launches=launches,
+                               passes=c.passes_run,
+                               **{k: digest(getattr(st, k))
+                                  for k in LEVEL0_PLANES})
+    with open(os.path.join(out, f"rank{rank}_{world}.json"), "w") as f:
+        json.dump(res, f)
+
+
 def main() -> int:
     import torch
 
@@ -339,6 +499,10 @@ def main() -> int:
             normalize_volume
         from remotesensingproject_tpu_torch.ops.pyramid import \
             cv_resize_shape
+        from remotesensingproject_tpu_torch.parallel.distributed import \
+            spawn as spawn_ranks
+        from remotesensingproject_tpu_torch.parallel.sharding2d import \
+            halo_widths
         from remotesensingproject_tpu_torch.types import (f32,
                                                           round_half_away)
         from remotesensingproject_tpu_torch.utils.checkpoint import (
@@ -606,9 +770,12 @@ def main() -> int:
     claim0 = state.claim.clone()
     claim0[s_hat] = active
 
-    def check_paint(tag, claim, fr, src, rb, m, cf, lc=None, **launch):
+    def check_paint(tag, claim, fr, src, rb, m, cf, lc=None, u_origin=0,
+                    **launch):
         """The paint with the payloads (depth, disp_conf) and, given
-        ``lc``, line mode's third (line_conf)."""
+        ``lc``, line mode's third (line_conf); sources wider than the
+        targets from column ``u_origin`` (the (v, u) mesh's halo).
+        Returns (record, the kernel's claim and targets)."""
         Sp, Vp, Up, Cp = fr.shape
         srcs = [src, cf] + ([] if lc is None else [lc])
 
@@ -619,7 +786,7 @@ def main() -> int:
         def paint(fn, cl, *tgts, **kw):
             return fn(cl, fr, src, rb, m, s_hat, params.slope_factor,
                       params.propagation_epsilon, list(zip(tgts, srcs)),
-                      **kw)
+                      u_origin=u_origin, **kw)
 
         got = fresh()
         paint(propagate_cuda, *got, **launch)
@@ -641,14 +808,14 @@ def main() -> int:
         n_reach = torch.zeros((), dtype=torch.int64, device=dev)
         n_reach_open = torch.zeros_like(n_reach)
         for s in range(Sp):
-            ut = ui + round_half_away(per_ds * float(s_hat - s)).to(
-                torch.int64)
+            ut = ui - u_origin + round_half_away(
+                per_ds * float(s_hat - s)).to(torch.int64)
             ok = (ut >= 0) & (ut < Up)
             n_reach += ok.sum()
             n_reach_open += claim[s][vi[ok], ut[ok]].sum()
         n_reach, n_reach_open = int(n_reach), int(n_reach_open)
         n_open = int(claim.sum())
-        nbytes = Vp * Up * (1 + 4 + 4 * Cp + 4 * P) + n_reach \
+        nbytes = Vp * src.shape[1] * (1 + 4 + 4 * Cp + 4 * P) + n_reach \
             + n_reach_open * 4 * Cp + painted * (1 + 4 * P)
         bms, by = bound(nbytes, n_reach * 3 + n_reach_open * (3 * Cp + 1))
         err = max(float((a.float() - b.float()).abs().max())
@@ -661,10 +828,10 @@ def main() -> int:
               f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
               f"{bms:.4f} ms by {by}")
         return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                    bound_by=by)
+                    bound_by=by), got
 
-    records["paint"] = check_paint("C=1", claim0, frames, filtered, rbar,
-                                   mask, conf)
+    records["paint"], _ = check_paint("C=1", claim0, frames, filtered, rbar,
+                                      mask, conf)
     # a late pass: a tenth of the open targets, a hundredth of the sources
     late = lambda shape, share: torch.rand(shape, generator=g,
                                            device=dev) < share
@@ -698,10 +865,10 @@ def main() -> int:
           f"[S, V, U]): {lc_ms:.3f} ms at the first level-0 pass, "
           f"{int(lc_src.sum())} sources of {int(good.sum())} swept px")
     del ce_line, res_k
-    modes["paint"]["three payloads"] = check_paint(
+    modes["paint"]["three payloads"], _ = check_paint(
         "C=1 line mode, three payloads", claim0, frames, filtered, rbar,
         lc_src, conf, lc=lc)
-    modes["paint"]["three payloads, late pass"] = check_paint(
+    modes["paint"]["three payloads, late pass"], _ = check_paint(
         "C=1 line mode, three payloads, late pass",
         claim0 & late((S, V, U), 0.1), frames, filtered, rbar,
         lc_src & late((V, U), 0.01), conf, lc=lc)
@@ -714,9 +881,7 @@ def main() -> int:
     print("phase 2 ok: every kernel agrees with its plain version")
 
     # ---- the main paths (phases 3-5, 7-9), counts reset just before each
-    wrappers = {"sweep_pixel": sweep_pile_pixel, "sweep_rows": sweep_pile_rows,
-                "sweep_tiles": sweep_pile_tiles,
-                "median": selective_median_cuda, "paint": propagate_cuda}
+    wrappers = wrappers_of()
     total = dict.fromkeys(wrappers, 0)
 
     def run_path(tag, needs, fn):
@@ -761,6 +926,7 @@ def main() -> int:
 
     (ftc, fused, validity), wall, launches = run_path(
         "phase 3", ("sweep_pixel", "median", "paint"), lambda: run_ftc(vol))
+    wall3 = wall
     print(f"phase 3 pipeline: {wall:.2f}s wall, {len(ftc.computers)} levels "
           f"(V, S, U, passes, s) {level_line(ftc)}, launches {launches}, "
           f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -774,6 +940,11 @@ def main() -> int:
     level0 = ftc.computers[0]
     before = {f.name: getattr(level0.state, f.name)
               for f in dataclasses.fields(level0.state)}
+    # what phase 13's sharded runs must reproduce bit for bit
+    ref3 = {"fused": digest(fused), "validity": digest(validity),
+            "passes": [c.passes_run for c in ftc.computers],
+            "passes0": level0.passes_run,
+            **{k: digest(before[k]) for k in LEVEL0_PLANES}}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt:
         t0 = time.perf_counter()
         path = save_level(ckpt, 0, level0)
@@ -1115,6 +1286,203 @@ def main() -> int:
           f"({host_s['mb']:.1f} MB), load {host_s['load']:.3f}s")
     if failures:
         print("phase 11 FAILED: " + "; ".join(failures))
+        return 1
+
+    # ---- phase 12: the (v, u) mesh's kernel operands at the bench shape ----
+    vol, _ = synthetic_sequence(torch, dev)
+    comp = Depth2DComputer(vol, DMIN, DMAX, D, params=params, device=dev)
+    epis = comp.epis
+    frames = epis.permute(1, 0, 2, 3).contiguous()
+    state = comp.initial_state()
+    active = (state.ce_mask[s_hat] & state.claim[s_hat]).contiguous()
+    # the whole scene's first pass, on the kernels (phase 2 holds them
+    # bitwise against their plain versions)
+    whole = sweep_pile_pixel(epis, DMIN, DMAX, D, s_hat, params, active)
+    good = active & (whole.best_score > params.raw_score_threshold)
+    zero = torch.zeros((), device=dev)
+    depth = torch.where(good, whole.best_depth, zero).contiguous()
+    mask = (state.ce_mask[s_hat] & ~(active & ~good)).contiguous()
+    filtered = selective_median_cuda(depth, frames[s_hat], mask,
+                                     params.median_filter_size,
+                                     params.median_filter_epsilon)
+    conf = torch.where(good, state.ce[s_hat] * torch.abs(
+        whole.best_score - whole.score_mean), zero).contiguous()
+    rbar = torch.where(good[..., None], whole.rbar, zero).contiguous()
+    claim0 = state.claim.clone()
+    claim0[s_hat] = active
+    del comp, state
+    # rank 1 of a (1, 2) mesh: the right half, haloed as sharding2d does
+    hu, pado = halo_widths(S, (DMIN, DMAX), params.slope_factor)
+    Ul = U // 2
+    u0 = U - Ul
+    window = (hu - u0, U - 1 - u0 + hu)
+    epis_h = u_block(torch, epis, u0, Ul, hu, 2)
+    act_h = u_block(torch, active, u0, Ul, hu, 1)
+    lo_h, hi_h = (torch.full(act_h.shape, b, device=dev)
+                  for b in (DMIN, DMAX))
+    Uh = epis_h.shape[2]
+    print(f"phase 12 inputs: level 0, s_hat={s_hat}, the right {Ul} "
+          f"columns haloed by hu={hu} ({Uh} columns, u_valid {window}), "
+          f"{int(act_h.sum())} active px; paint halo pado={pado}")
+    half = active[:, u0:]
+
+    def same_as_whole(tag, got):
+        ok = all(torch.equal(getattr(got, k)[:, hu:hu + Ul][half],
+                             getattr(whole, k)[:, u0:][half])
+                 for k in ("best_score", "score_mean", "best_depth", "rbar"))
+        print(f"  {tag}: the whole scene's sweep at the half's pixels "
+              f"bitwise {ok}")
+        if not ok:
+            failures.append(f"phase 12 {tag}: not the whole scene's sweep")
+
+    sweep_bytes = (epis_h.numel() + int(act_h.sum()) + V * Uh * 4) * 4
+    modes["sweep_pixel"]["u_valid (haloed half)"], got = check_kernel(
+        "sweep_pixel u_valid (haloed half)",
+        lambda w: sweep_pile_pixel(epis_h, DMIN, DMAX, D, s_hat, params,
+                                   act_h, work_count=w, u_valid=window),
+        lambda: sweep_pile(epis_h, lo_h, hi_h, D, s_hat, params,
+                           u_valid=window), act_h, sweep_bytes, 1)
+    same_as_whole("sweep_pixel u_valid", got)
+    modes["sweep_tiles"]["u_valid, pixel mode (haloed half)"], got = \
+        check_kernel(
+            "sweep_tiles u_valid, pixel mode (haloed half)",
+            lambda w: sweep_pile_tiles(epis_h, lo_h, hi_h, D, s_hat, params,
+                                       active_v_u=act_h, work_count=w,
+                                       u_valid=window),
+            lambda: sweep_pile(epis_h, lo_h, hi_h, D, s_hat, params,
+                               u_valid=window), act_h,
+            sweep_bytes + 2 * V * Uh * 4, 1)
+    same_as_whole("sweep_tiles u_valid", got)
+    del got, epis_h, act_h, lo_h, hi_h
+    # the paint of the half's targets from sources haloed by pado
+    srcs_h = [u_block(torch, x, u0, Ul, pado, 1)
+              for x in (filtered, rbar, mask, conf)]
+    rec, got = check_paint("C=1 u_origin (haloed half)",
+                           claim0[:, :, u0:].contiguous(),
+                           frames[:, :, u0:].contiguous(), srcs_h[0],
+                           srcs_h[1], srcs_h[2], srcs_h[3], u_origin=pado)
+    modes["paint"]["u_origin (haloed half)"] = rec
+    full_claim = claim0.clone()
+    full_t = [torch.zeros((S, V, U), device=dev) for _ in range(2)]
+    propagate_cuda(full_claim, frames, filtered, rbar, mask, s_hat,
+                   params.slope_factor, params.propagation_epsilon,
+                   list(zip(full_t, (filtered, conf))))
+    ok = all(torch.equal(a, b[:, :, u0:]) for a, b in
+             zip(got, [full_claim, *full_t]))
+    print(f"  paint u_origin: the whole scene's paint on the half bitwise "
+          f"{ok}")
+    if not ok:
+        failures.append("phase 12 paint u_origin: not the whole scene's")
+    del srcs_h, got, full_claim, full_t, whole, claim0, frames, epis
+    torch.cuda.empty_cache()
+    if failures:
+        print("phase 12 FAILED: " + "; ".join(failures))
+        return 1
+
+    # ---- phase 13: the sharded fine-to-coarse and a (1, 2) mesh ----
+    mesh_rows = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        for world, with_2d in ((1, False), (2, True)):
+            t0 = time.perf_counter()
+            spawn_ranks(sharded_rank, world, args=(tmp, with_2d),
+                        device="cuda:0")
+            spawn_s = time.perf_counter() - t0
+            ranks = []
+            for r in range(world):
+                with open(os.path.join(tmp, f"rank{r}_{world}.json")) as f:
+                    ranks.append(json.load(f))
+            for r in ranks:
+                ftc_r = r["ftc"]
+                same = all(ftc_r[k] == ref3[k]
+                           for k in ("fused", "validity", "passes"))
+                print(f"phase 13 world {world} ({r['backend']}) rank "
+                      f"{r['rank']}: sharded fine-to-coarse "
+                      f"{ftc_r['wall']:.2f}s wall (phase 3: {wall3:.2f}s), "
+                      f"passes {ftc_r['passes']}, launches "
+                      f"{ftc_r['launches']}; fused and validity bitwise "
+                      f"phase 3's {same}")
+                if not same:
+                    failures.append(f"phase 13 world {world} rank "
+                                    f"{r['rank']}: not phase 3's maps")
+                for k in ("sweep_pixel", "median", "paint"):
+                    if not ftc_r["launches"][k]:
+                        failures.append(f"phase 13 world {world} rank "
+                                        f"{r['rank']}: never launched {k}")
+                if "mesh_1x2" in r:
+                    m2 = r["mesh_1x2"]
+                    same2 = m2["passes"] == ref3["passes0"] and all(
+                        m2[k] == ref3[k] for k in LEVEL0_PLANES)
+                    print(f"phase 13 (1, 2) mesh rank {r['rank']}: level 0 "
+                          f"{m2['wall']:.2f}s wall, {m2['passes']} passes, "
+                          f"launches {m2['launches']}; state bitwise phase "
+                          f"3's level 0 {same2}")
+                    if not same2:
+                        failures.append(f"phase 13 (1, 2) mesh rank "
+                                        f"{r['rank']}: not phase 3's level 0")
+                    for k in ("sweep_pixel", "median", "paint"):
+                        if not m2["launches"][k]:
+                            failures.append(f"phase 13 (1, 2) mesh rank "
+                                            f"{r['rank']}: never launched "
+                                            f"{k}")
+            print(f"phase 13 world {world}: {spawn_s:.1f}s from spawn to "
+                  f"the last rank's end; rank 0's collectives (ms a call, "
+                  f"level-0 sizes): " + ", ".join(
+                      f"{k} {v:.3f}" for k, v in
+                      ranks[0]["collective_ms"].items()))
+            mesh_rows[world] = ranks
+    if failures:
+        print("phase 13 FAILED: " + "; ".join(failures))
+        return 1
+    # the operands' launches on the main path: the (1, 2) mesh's, every rank
+    n_2d = {k: sum(r["mesh_1x2"]["launches"][k] for r in mesh_rows[2])
+            for k in ("sweep_pixel", "sweep_tiles", "paint")}
+    modes["sweep_pixel"]["u_valid (haloed half)"]["launches"] = \
+        n_2d["sweep_pixel"]
+    modes["sweep_tiles"]["u_valid, pixel mode (haloed half)"]["launches"] = \
+        n_2d["sweep_tiles"]
+    modes["paint"]["u_origin (haloed half)"]["launches"] = n_2d["paint"]
+
+    # ---- phase 14: --no-pallas on data/strips16 ----
+    strips = build_epis_from_imgs(read_imgs_from_folder(data, "png"))
+
+    def no_pallas():
+        f_ = FineToCoarse(strips, -1.0, 1.5, 24, device=dev,
+                          use_pallas=False)
+        f_.run()
+        return f_.get_results()
+
+    (fused_np, valid_np), wall, launches = run_path(
+        "phase 14 --no-pallas", (), no_pallas)
+    on_card = fused_np.is_cuda and valid_np.is_cuda
+    f_np, v_np = fused_np.cpu().numpy(), valid_np.cpu().numpy()
+    err_np = np.min(np.abs(f_np[v_np][:, None] - layers[None]), axis=1)
+    med_np = float(np.median(err_np))
+    rmse_np = float(np.sqrt(np.mean(err_np ** 2)))
+    ok_np = v_np.mean() > 0.3 and med_np < 0.1 and rmse_np < 0.3
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_np_") as tmp:
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            _, wall_cli, launches_cli = run_path(
+                "phase 14 CLI --no-pallas", (), lambda: cli.main([
+                    "fine-to-coarse", data, "--ext", "png", "--dmin", "-1",
+                    "--dmax", "1.5", "--dim-d", "24", "--no-pallas",
+                    "--out", tmp]))
+        z = np.load(os.path.join(tmp, "fine_to_coarse_results.npz"))
+        same_cli = (np.array_equal(z["fused"], f_np)
+                    and np.array_equal(z["validity"], v_np))
+    print(f"phase 14 --no-pallas on strips16: {wall:.2f}s wall, launches "
+          f"{launches}, results on the card {on_card}; {v_np.mean() * 100:.1f}"
+          f"% px valid (> 30%), median error {med_np:.4f} px (< 0.1), RMSE "
+          f"{rmse_np:.4f} px (< 0.3): {'ok' if ok_np else 'FAILED'}; CLI "
+          f"{wall_cli:.2f}s, launches {launches_cli}, npz equal to the "
+          f"API's {same_cli}")
+    if any(launches.values()) or any(launches_cli.values()):
+        failures.append("phase 14: a kernel launched under --no-pallas")
+    if not (on_card and ok_np and same_cli):
+        failures.append(f"phase 14: on the card {on_card}, gate {ok_np}, "
+                        f"CLI npz equal {same_cli}")
+    if failures:
+        print("phase 14 FAILED: " + "; ".join(failures))
         return 1
 
     meta = {

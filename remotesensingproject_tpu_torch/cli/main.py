@@ -16,8 +16,14 @@ Each depth command also writes its arrays to ``<command>_results.npz``
 and runs on CUDA unless ``--device`` names another device.  ``--score``
 and ``--fast`` set the params of every depth command (``depth1d``
 included); ``--ckpt-dir`` saves and resumes the levels of
-``fine-to-coarse``.  Not ported: the ``bench`` command, ``--sharded`` and
-``--no-pallas``, which raise NotImplementedError.
+``fine-to-coarse``; ``--no-pallas`` runs the plain PyTorch versions on the
+device (``pile``, ``depth2d``, ``fine-to-coarse``: the JAX package's XLA
+path); ``--sharded`` runs ``fine-to-coarse`` over a process group: the
+ranks of ``torchrun`` (``torchrun --nproc-per-node N -m
+remotesensingproject_tpu_torch.cli.main fine-to-coarse --sharded ...``),
+else one rank per visible card (one rank on ``--device``'s device when
+it is given); rank 0 writes the results.  Not ported: the ``bench``
+command, which raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -27,9 +33,7 @@ import dataclasses
 import sys
 import time
 
-NOT_PORTED = ("Not ported yet (ROADMAP.md): the bench command, --sharded "
-              "and --no-pallas (--device cpu runs the plain PyTorch "
-              "versions).")
+NOT_PORTED = "Not ported yet (ROADMAP.md): the bench command."
 
 
 def _add_io_args(p):
@@ -47,9 +51,12 @@ def _add_depth_args(p):
     p.add_argument("--s-hat", type=int, default=-1)
     p.add_argument("--scale-factor", type=float, default=-1.0)
     p.add_argument("--no-pallas", action="store_true",
-                   help="not ported: use --device cpu for the plain "
-                        "PyTorch versions")
-    p.add_argument("--sharded", action="store_true", help="not ported")
+                   help="run the plain PyTorch versions instead of the "
+                        "CUDA kernels, on the device (pile, depth2d, "
+                        "fine-to-coarse)")
+    p.add_argument("--sharded", action="store_true",
+                   help="fine-to-coarse over a process group: torchrun's "
+                        "ranks, else one rank per visible card")
     p.add_argument("--ckpt-dir", default=None,
                    help="checkpoint/resume directory (fine-to-coarse)")
     p.add_argument("--score", choices=["edge", "disp", "line"],
@@ -64,12 +71,12 @@ def _add_depth_args(p):
 def _make_params(args):
     from ..config import DEFAULT_PARAMS
 
-    for flag, name in ((args.no_pallas, "--no-pallas"),
-                       (args.sharded, "--sharded")):
-        if flag:
-            raise NotImplementedError(f"{name} is not ported yet")
     return dataclasses.replace(DEFAULT_PARAMS, score_version=args.score,
                                fast=args.fast)
+
+
+def _use_pallas(args):
+    return False if args.no_pallas else None
 
 
 def _read_frames(args):
@@ -162,7 +169,7 @@ def cmd_pile(args):
     computer = Depth1DComputerPile(
         epis, args.dmin, args.dmax, args.dim_d, s_hat=args.s_hat,
         epi_scale_factor=args.scale_factor, params=params,
-        device=args.device)
+        device=args.device, use_pallas=_use_pallas(args))
     res = computer.run()
     arrays = _numpy(**res._asdict())
     print(f"pile in {time.perf_counter() - t0:.2f}s")
@@ -183,7 +190,7 @@ def cmd_depth2d(args):
     computer = Depth2DComputer(
         epis, args.dmin, args.dmax, args.dim_d,
         epi_scale_factor=args.scale_factor, params=params, verbose=True,
-        device=args.device)
+        device=args.device, use_pallas=_use_pallas(args))
     state = computer.run()
     arrays = _numpy(best_depth=state.best_depth,
                     disp_confidence=state.disp_conf,
@@ -200,25 +207,67 @@ def cmd_depth2d(args):
     print(f"maps + npz written to {path}")
 
 
-def cmd_fine_to_coarse(args):
+def cmd_fine_to_coarse(args, mesh=None):
     from ..models.fine_to_coarse import FineToCoarse
     from ..utils import io
 
+    if args.sharded and mesh is None:
+        return _run_sharded(args)
     params = _make_params(args)
+    writer = mesh is None or mesh.rank == 0
     epis = _read_volume(args)
     t0 = time.perf_counter()
     ftc = FineToCoarse(epis, args.dmin, args.dmax, args.dim_d,
                        epi_scale_factor=args.scale_factor, params=params,
-                       verbose=True, device=args.device)
+                       verbose=writer, device=args.device,
+                       use_pallas=_use_pallas(args), mesh=mesh)
     ftc.run(ckpt_dir=args.ckpt_dir)
     maps = ftc.get_coloured_depth_maps()
     fused, validity = ftc.get_results()
+    if not writer:
+        return
     arrays = _numpy(fused=fused, validity=validity)
-    print(f"fine-to-coarse in {time.perf_counter() - t0:.2f}s")
+    print(f"fine-to-coarse in {time.perf_counter() - t0:.2f}s"
+          + ("" if mesh is None else f" on {mesh.world} ranks"))
     for s in range(maps.shape[0]):
         io.write_img(maps[s], args.out, f"depth_map_{s:03d}")
     path = io.write_npz(args.out, "fine_to_coarse_results", **arrays)
     print(f"maps + npz written to {path}")
+
+
+def _sharded_rank(rank, args):
+    """One rank of ``fine-to-coarse --sharded`` in a started process
+    group."""
+    from ..parallel.mesh import make_mesh
+
+    cmd_fine_to_coarse(args, make_mesh())
+
+
+def _run_sharded(args):
+    """``fine-to-coarse --sharded``: the ranks of torchrun (from the
+    environment), else one rank per visible card, or one rank on
+    ``--device``'s device when it is given."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from ..parallel import distributed
+
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        distributed.initialize(device=args.device)
+        try:
+            _sharded_rank(dist.get_rank(), args)
+        finally:
+            dist.destroy_process_group()
+        return
+    if args.device is None:
+        from ..types import resolve_device
+
+        resolve_device(None)  # raises without a card
+    world = 1 if args.device is not None else torch.cuda.device_count()
+    distributed.spawn(_sharded_rank, world, args=(args,),
+                      device=args.device)
 
 
 def cmd_info(args):
@@ -271,7 +320,7 @@ def main(argv=None):
 
     p = sub.add_parser("info")
     p.set_defaults(fn=cmd_info)
-    p = sub.add_parser("bench", help="not ported")
+    p = sub.add_parser("bench", help=NOT_PORTED)
     p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)

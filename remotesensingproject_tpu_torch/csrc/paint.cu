@@ -7,17 +7,22 @@
 //
 // What it computes: every source pixel (v, u') of the s_hat plane (those of
 // `mask`) paints its payloads (1 to 3 (source, target) pairs: depth and
-// disp_conf, and line_conf in line mode) onto the targets (s, v, u' + o),
-// o = round_half_away((depth[v, u'] * slope) * (s_hat - s)), that are still
-// unclaimed and whose frame colour is within eps of the source's r_bar
-// (chan_scale * sum_c diff^2 < eps^2).  The reference's order is first
-// writer wins with u' ascending, so a contested target takes the
-// qualifying source with the smallest u'.
+// disp_conf, and line_conf in line mode) onto the targets
+// (s, v, u' - u_origin + o), o = round_half_away((depth[v, u'] * slope) *
+// (s_hat - s)), that are still unclaimed and whose frame colour is within
+// eps of the source's r_bar (chan_scale * sum_c diff^2 < eps^2).  The source
+// planes are Us >= U columns wide and the targets' column 0 is source column
+// u_origin: Us = U and u_origin = 0 for whole rows; the (v, u) mesh passes
+// sources haloed by `pado` columns on each side and u_origin = pado (the TPU
+// path's `u_origin`).  The reference's order is first writer wins with u'
+// ascending, so a contested target takes the qualifying source with the
+// smallest u' (a haloed column is monotone in the image column, so the
+// smallest haloed column is the image's smallest).
 //
 // Bound on this card: bytes.  Each target reads its claim byte; an
 // unclaimed one that a source reaches also reads its C colours and, where
 // painted, writes its claim byte and its payloads; the source rows are
-// [V, U] planes that stay in cache.
+// [V, Us] planes that stay in cache.
 //
 // Design: the work is driven from the sources, one rounding per
 // (s, source), not from the targets (a target cannot know which of the
@@ -50,13 +55,15 @@ namespace {
 struct PaintArgs {
   unsigned char* claim;        // [S, V, U], 1 = unclaimed
   const float* frames;         // [S, V, U, C]
-  const float* depth;          // [V, U] the sources' depths
-  const unsigned char* mask;   // [V, U] 1 = source
-  const float* rbar;           // [V, U, C]
-  int S, V, U, C, s_hat;
+  const float* depth;          // [V, Us] the sources' depths
+  const unsigned char* mask;   // [V, Us] 1 = source
+  const float* rbar;           // [V, Us, C]
+  int S, V, U, C;
+  int Us, u_origin;            // source columns; the targets' column 0
+  int s_hat;
   float slope, cs, eps_sq;
   int n_pay;                   // payloads, 1 to 3
-  const float* src0;           // [V, U] payload sources (unused: null)
+  const float* src0;           // [V, Us] payload sources (unused: null)
   const float* src1;
   const float* src2;
   float* tgt0;                 // [S, V, U] payload targets (unused: null)
@@ -72,13 +79,17 @@ constexpr int kNone = INT_MAX;  // no source has qualified
 constexpr int kThreads = 256;
 constexpr int kBatch = 4;       // sources a thread keeps in flight
 
-// NC > 0: exactly NC channels, unrolled; NC == 0: any C.
-template <int NC>
+// NC > 0: exactly NC channels, unrolled; NC == 0: any C.  HALO: sources
+// wider than the targets (Us, u_origin); without, Us = U and u_origin = 0
+// are constants and whole rows pay nothing for them.
+template <int NC, bool HALO>
 __global__ void __launch_bounds__(kThreads) paint_kernel(const PaintArgs a) {
   extern __shared__ int win[];  // [tile] smallest qualifying u' per target
   const int tid = threadIdx.x;
   const int C = NC > 0 ? NC : a.C;
   const int U = a.U;
+  const int Us = HALO ? a.Us : U;
+  const int org = HALO ? a.u_origin : 0;
   int b = blockIdx.x;
   const int k = b % a.n_tiles;
   b /= a.n_tiles;
@@ -88,11 +99,14 @@ __global__ void __launch_bounds__(kThreads) paint_kernel(const PaintArgs a) {
   const int nt = min(a.tile, U - u0);
   const int s_begin = r * a.s_run;
   const int s_end = min(a.S, s_begin + a.s_run);
-  const size_t vrow = (size_t)v * U;
+  const size_t vrow = (size_t)v * Us;  // the sources' row
+  // the first and last target columns of the tile, in source columns
+  const int t_lo = u0 + org;
+  const int t_hi = t_lo + nt - 1;
 
   // a row without any source paints nothing
   int any = 0;
-  for (int us = tid; us < U; us += kThreads) any |= a.mask[vrow + us];
+  for (int us = tid; us < Us; us += kThreads) any |= a.mask[vrow + us];
   if (!__syncthreads_or(any)) return;
   for (int i = tid; i < nt; i += kThreads) win[i] = kNone;
   __syncthreads();
@@ -101,20 +115,20 @@ __global__ void __launch_bounds__(kThreads) paint_kernel(const PaintArgs a) {
     const float ds = (float)(a.s_hat - s);
     const size_t trow = ((size_t)s * a.V + v) * U;  // the targets' row
     // ---- scatter: each source of the row bids for its target ----
-    for (int base = 0; base < U; base += kBatch * kThreads) {
+    for (int base = 0; base < Us; base += kBatch * kThreads) {
       int ut[kBatch];  // the target column, or -1
       unsigned char is_open[kBatch];
 #pragma unroll
       for (int j = 0; j < kBatch; ++j) {
         const int us = base + j * kThreads + tid;
         ut[j] = -1;
-        if (us < U && a.mask[vrow + us]) {
+        if (us < Us && a.mask[vrow + us]) {
           const float tg = __ldg(a.depth + vrow + us) * a.slope;
           const float of = rslf_round_half_away(tg * ds);
-          // u0 <= us + of < u0 + nt, on floats: exact for the integers of
+          // t_lo <= us + of <= t_hi, on floats: exact for the integers of
           // a row, and false for an offset beyond the int range
-          if (of >= (float)(u0 - us) && of <= (float)(u0 + nt - 1 - us))
-            ut[j] = us + (int)of;
+          if (of >= (float)(t_lo - us) && of <= (float)(t_hi - us))
+            ut[j] = us + (int)of - org;
         }
       }
 #pragma unroll
@@ -156,8 +170,11 @@ template <int NC>
 cudaError_t launch(const PaintArgs& a, cudaStream_t stream) {
   const long long blocks = (long long)a.V * a.n_runs * a.n_tiles;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  paint_kernel<NC><<<(unsigned)blocks, kThreads, (size_t)a.tile * sizeof(int),
-                     stream>>>(a);
+  const size_t bytes = (size_t)a.tile * sizeof(int);
+  if (a.Us != a.U || a.u_origin != 0)
+    paint_kernel<NC, true><<<(unsigned)blocks, kThreads, bytes, stream>>>(a);
+  else
+    paint_kernel<NC, false><<<(unsigned)blocks, kThreads, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -166,7 +183,10 @@ cudaError_t launch(const PaintArgs& a, cudaStream_t stream) {
 RSLF_DEFINE_ERROR_STRING(rslf_paint_error_string)
 
 // Launch on `stream`; updates claim and the `n_payloads` (1 to 3) targets in
-// place, (src0, tgt0) first; the pointers of unused payloads are null.  `tile`
+// place, (src0, tgt0) first; the pointers of unused payloads are null.  The
+// source planes (depth, mask, rbar, src*) are `Us` >= U columns wide, the
+// targets' column 0 at their column `u_origin` (Us = U, u_origin = 0 for
+// whole rows).  `tile`
 // is the number of target columns of a block; 0 lets the launcher choose
 // (whole rows up to 4,096 columns).  A block takes a run of frames that
 // leaves some 32 blocks for each SM (on an H100 runs of 4 to 25 frames are
@@ -174,7 +194,8 @@ RSLF_DEFINE_ERROR_STRING(rslf_paint_error_string)
 RSLF_EXPORT int rslf_paint(unsigned char* claim, const float* frames,
                            const float* depth, const unsigned char* mask,
                            const float* rbar, int S, int V, int U, int C,
-                           int s_hat, float slope, float cs, float eps_sq,
+                           int Us, int u_origin, int s_hat, float slope,
+                           float cs, float eps_sq,
                            int n_payloads, const float* src0, float* tgt0,
                            const float* src1, float* tgt1, const float* src2,
                            float* tgt2, int tile, void* stream) {
@@ -184,6 +205,8 @@ RSLF_EXPORT int rslf_paint(unsigned char* claim, const float* frames,
   for (int i = 0; i < 3; ++i)
     if ((i < n_payloads) != (srcs[i] != nullptr && tgts[i] != nullptr))
       return (int)cudaErrorInvalidValue;
+  if (Us < U || u_origin < 0 || u_origin > Us - U)
+    return (int)cudaErrorInvalidValue;
   if (S <= 0 || V <= 0 || U <= 0) return (int)cudaSuccess;
   if (tile < 0 || tile > 8192) return (int)cudaErrorInvalidValue;
   if (tile == 0) tile = U < 4096 ? U : 4096;
@@ -199,9 +222,10 @@ RSLF_EXPORT int rslf_paint(unsigned char* claim, const float* frames,
   if (runs > S) runs = S;
   const int s_run = (int)((S + runs - 1) / runs);
   const int n_runs = (S + s_run - 1) / s_run;
-  const PaintArgs a{claim, frames, depth, mask, rbar, S, V, U, C, s_hat,
-                    slope, cs, eps_sq, n_payloads, src0, src1, src2, tgt0,
-                    tgt1, tgt2, tile, n_tiles, s_run, n_runs};
+  const PaintArgs a{claim, frames, depth, mask, rbar, S, V, U, C, Us,
+                    u_origin, s_hat, slope, cs, eps_sq, n_payloads, src0,
+                    src1, src2, tgt0, tgt1, tgt2, tile, n_tiles, s_run,
+                    n_runs};
   cudaStream_t st = (cudaStream_t)stream;
   switch (C) {
     case 1:

@@ -7,7 +7,12 @@
 // of the launcher's position rule (a compile-time parameter):
 //   * per pixel (PcRulePixel): I = u + ((s_hat - s) * delta) * slope,
 //     (1 - t) * row[floor(I)] + t * row[ceil(I)], valid iff floor(I) >= 0
-//     and ceil(I) <= U - 1;
+//     and ceil(I) <= U - 1; in a window [lo, hi] of valid columns other
+//     than [0, U - 1] (PcRulePixelWindow) I = (u - lo) + ..., valid iff
+//     floor(I) >= 0 and ceil(I) <= hi - lo, columns lo + floor(I) and
+//     lo + ceil(I) read, clamped to [0, U - 1]: a u-sharded caller sweeps
+//     a block haloed in u and passes the image's columns in the block's
+//     coordinates, so its positions are the whole image's bit for bit;
 //   * shared shift (PcRuleRow): shift = ((s_hat - s) * delta) * slope is one
 //     value for every u, i0 = floor(shift), t = shift - i0, the sample is
 //     (1 - t) * row[i0 + u] + t * row[i0 + u + 1], valid iff
@@ -15,7 +20,9 @@
 //     the last ulp of the weight;
 //   * nearest (PcRuleNearest, interpolation="nearest"): I as per pixel,
 //     r = round_half_away(I), the one sample row[r], valid iff
-//     0 <= r <= U - 1 (the plain version's `_radiances` nearest branch);
+//     0 <= r <= U - 1, or in a window (PcRuleNearestWindow) row[lo + r]
+//     clamped, valid iff 0 <= r <= hi - lo (the plain version's
+//     `_radiances` nearest branch);
 // then the truncated mean shift from the pixel's s_hat colour; the score
 // sum_s K / card_R with the kernel values of the last step; over the
 // candidates the first-max argmax and the score sum in candidate order;
@@ -123,6 +130,7 @@ struct PcArgs {
   int G;              // pixels of a group
   int ncap;           // items of a window's list
   int by_pixel;       // slots laid d * G + p (unmasked mode only)
+  int u_lo, u_hi;     // the window of valid sample columns (not PcRuleRow)
   SweepOut out;
 };
 
@@ -179,12 +187,14 @@ struct PcPos {
   bool up, ok;
 };
 
-// The per-pixel rule: I = u + (ds * delta) * slope.  With
+// The per-pixel rule on whole rows: I = u + (ds * delta) * slope.  With
 // ceil(I) = floor(I) + (I > floor(I)), floor(I) >= 0 is I >= 0 and
-// ceil(I) <= U - 1 is I <= U - 1, exactly.
+// ceil(I) <= U - 1 is I <= U - 1, exactly.  (lo, hi are 0 and U - 1 and
+// are not read: the launchers take PcRulePixelWindow for another window.)
 struct PcRulePixel {
-  static __device__ __forceinline__ PcPos pos(float ds, int u, int U,
-                                              float delta, float slope) {
+  static __device__ __forceinline__ PcPos pos(float ds, int u, int U, int,
+                                              int, float delta,
+                                              float slope) {
     const float idx = (float)u + (ds * delta) * slope;
     const float fi = floorf(idx);
     PcPos p;
@@ -196,14 +206,41 @@ struct PcRulePixel {
   }
 };
 
+// The per-pixel rule in a window [lo, hi] of valid columns other than
+// [0, U - 1] (a u-haloed block): I = (u - lo) + (ds * delta) * slope, the
+// position in the window's columns, valid iff 0 <= I <= hi - lo (floor and
+// ceil tests, exactly, as in PcRulePixel).  The columns read are
+// lo + floor(I) and lo + ceil(I) clamped to [0, U - 1], as the plain
+// version gathers them: where the clamp makes them one column, the ceil
+// sample is the floor one.  Under the window [0, U - 1] it gives
+// PcRulePixel's samples; it is a rule of its own so that whole rows keep
+// that rule's code.
+struct PcRulePixelWindow {
+  static __device__ __forceinline__ PcPos pos(float ds, int u, int U, int lo,
+                                              int hi, float delta,
+                                              float slope) {
+    const float idx = (float)(u - lo) + (ds * delta) * slope;
+    const float fi = floorf(idx);
+    const float fc = fi + (float)lo;  // the floor column, exact
+    PcPos p;
+    p.t = idx - fi;
+    p.ok = (idx >= 0.f) && (idx <= (float)(hi - lo));
+    p.up = p.ok && (p.t > 0.f) && (fc >= 0.f) && (fc <= (float)(U - 2));
+    p.i0 = p.ok ? min(max((int)fc, 0), U - 1) : 0;
+    return p;
+  }
+};
+
 // The shared-shift rule of the row sweep: shift = (ds * delta) * slope for
 // every u, columns floor(shift) + u and one more where t > 0, valid iff
 // -floor(shift) <= u <= U - 1 - (floor(shift) + (t > 0)).  The comparisons
 // are made on floats (exact for the integers of an image row), so a shift
-// beyond the int range is invalid and never converted.
+// beyond the int range is invalid and never converted.  It takes no window
+// (lo, hi are not read): the row sweep runs on whole rows only.
 struct PcRuleRow {
-  static __device__ __forceinline__ PcPos pos(float ds, int u, int U,
-                                              float delta, float slope) {
+  static __device__ __forceinline__ PcPos pos(float ds, int u, int U, int,
+                                              int, float delta,
+                                              float slope) {
     const float shift = (ds * delta) * slope;
     const float f0 = floorf(shift);
     PcPos p;
@@ -217,16 +254,17 @@ struct PcRuleRow {
   }
 };
 
-// The nearest rule: I = u + (ds * delta) * slope as in PcRulePixel, the
-// column r = sign(I) * floor(|I| + 0.5), valid iff 0 <= r <= U - 1.  With
-// t = 0 and up = false an item's (1 - t) * a + t * b is a and the ceil
-// column is never read, so staging, mean shift, scores and k_best need
-// nothing else.  r is monotone in s like I, so the valid samples stay one
-// run.  The comparisons are made on floats, so a column beyond the int
-// range is invalid and never converted.
+// The nearest rule on whole rows: I = u + (ds * delta) * slope as in
+// PcRulePixel, the column r = sign(I) * floor(|I| + 0.5), valid iff
+// 0 <= r <= U - 1.  With t = 0 and up = false an item's (1 - t) * a + t * b
+// is a and the ceil column is never read, so staging, mean shift, scores
+// and k_best need nothing else.  r is monotone in s like I, so the valid
+// samples stay one run.  The comparisons are made on floats, so a column
+// beyond the int range is invalid and never converted.
 struct PcRuleNearest {
-  static __device__ __forceinline__ PcPos pos(float ds, int u, int U,
-                                              float delta, float slope) {
+  static __device__ __forceinline__ PcPos pos(float ds, int u, int U, int,
+                                              int, float delta,
+                                              float slope) {
     const float idx = (float)u + (ds * delta) * slope;
     const float r = rslf_round_half_away(idx);
     PcPos p;
@@ -234,6 +272,24 @@ struct PcRuleNearest {
     p.ok = (r >= 0.f) && (r <= (float)(U - 1));
     p.up = false;
     p.i0 = p.ok ? (int)r : 0;
+    return p;
+  }
+};
+
+// The nearest rule in a window [lo, hi]: I = (u - lo) + (ds * delta) *
+// slope as in PcRulePixelWindow, r = sign(I) * floor(|I| + 0.5), valid iff
+// 0 <= r <= hi - lo, read at column lo + r clamped to [0, U - 1].
+struct PcRuleNearestWindow {
+  static __device__ __forceinline__ PcPos pos(float ds, int u, int U, int lo,
+                                              int hi, float delta,
+                                              float slope) {
+    const float idx = (float)(u - lo) + (ds * delta) * slope;
+    const float r = rslf_round_half_away(idx) + (float)lo;  // exact
+    PcPos p;
+    p.t = 0.f;
+    p.ok = (r >= (float)lo) && (r <= (float)hi);
+    p.up = false;
+    p.i0 = p.ok ? min(max((int)r, 0), U - 1) : 0;
     return p;
   }
 };
@@ -299,14 +355,15 @@ struct PcCol {
 template <typename Rule, int NC, int UN>
 __device__ __forceinline__ void rslf_pc_stage(const float* rs,
                                               const PcCol<NC>& col, int s,
-                                              float ds, int u, int U,
-                                              float delta, float slope,
-                                              bool vec, int& s_a, int& s_b) {
+                                              float ds, int u, int U, int lo,
+                                              int hi, float delta,
+                                              float slope, bool vec, int& s_a,
+                                              int& s_b) {
   PcPos q[UN];
   float xa[UN][NC], xb[UN][NC], x[UN * NC];
 #pragma unroll
   for (int j = 0; j < UN; ++j)
-    q[j] = Rule::pos(ds - (float)j, u, U, delta, slope);
+    q[j] = Rule::pos(ds - (float)j, u, U, lo, hi, delta, slope);
   if (NC == 4 && vec) {
 #pragma unroll
     for (int j = 0; j < UN; ++j) {
@@ -392,11 +449,11 @@ __device__ __forceinline__ unsigned long long rslf_pc_item(
     const float* rs = row;
     int s = 0;
     for (; s + US <= S; s += US, rs += US * U * NC)
-      rslf_pc_stage<Rule, NC, US>(rs, col, s, fsh - (float)s, u, U, delta, a.slope,
-                            vec, s_a, s_b);
+      rslf_pc_stage<Rule, NC, US>(rs, col, s, fsh - (float)s, u, U, a.u_lo,
+                                  a.u_hi, delta, a.slope, vec, s_a, s_b);
     for (; s < S; ++s, rs += U * NC)
-      rslf_pc_stage<Rule, NC, 1>(rs, col, s, fsh - (float)s, u, U, delta, a.slope,
-                           vec, s_a, s_b);
+      rslf_pc_stage<Rule, NC, 1>(rs, col, s, fsh - (float)s, u, U, a.u_lo,
+                                 a.u_hi, delta, a.slope, vec, s_a, s_b);
   }
   const int card = (s_b >= s_a) ? s_b - s_a + 1 : 0;
 
@@ -457,7 +514,8 @@ __device__ __forceinline__ unsigned long long rslf_pc_item_any(
       srk{chan + 2 * (size_t)C * T, T};
   int s_a = S, s_b = -1;
   for (int s = 0; s < S; ++s) {
-    const PcPos q = Rule::pos((float)(a.s_hat - s), u, U, delta, a.slope);
+    const PcPos q = Rule::pos((float)(a.s_hat - s), u, U, a.u_lo, a.u_hi,
+                              delta, a.slope);
     const float* ra = row + ((size_t)s * U + q.i0) * C;
     const float* rc = ra + (q.up ? C : 0);
     for (int c = 0; c < C; ++c)
@@ -719,7 +777,8 @@ __global__ void sweep_pc_kernel(const PcArgs a) {
         if (bd >= 0) {
           const float delta = px_lo[p] + ((float)bd * px_rng[p]) / den;
           const PcPos q =
-              Rule::pos((float)(a.s_hat - s), u, U, delta, a.slope);
+              Rule::pos((float)(a.s_hat - s), u, U, a.u_lo, a.u_hi, delta,
+                        a.slope);
           if (q.ok) {
             const float* row = a.epis + (size_t)v * S * U * C;
             const float* ra = row + ((size_t)s * U + q.i0) * C;

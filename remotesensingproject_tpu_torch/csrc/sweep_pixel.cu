@@ -7,10 +7,15 @@
 // What it computes, per active pixel (v, u) of the pass: for each of the
 // D candidate disparities d = lo + (k * (hi - lo)) / (D - 1) (uniform or
 // the pixel's own [lo, hi]), the S radiances sampled at
-// I = u + ((s_hat - s) * d) * slope by linear interpolation (a sample is
-// valid iff floor(I) >= 0 and ceil(I) <= U - 1) or, with `nearest`, at
-// the column round_half_away(I) (valid iff it lies in [0, U - 1]; the
-// plain version's `interpolation="nearest"`), then `iters` truncated
+// I = (u - u_lo) + ((s_hat - s) * d) * slope by linear interpolation (a
+// sample is valid iff floor(I) >= 0 and ceil(I) <= u_hi - u_lo) or, with
+// `nearest`, at round_half_away(I) (valid iff it lies in [0, u_hi - u_lo];
+// the plain version's `interpolation="nearest"`), column u_lo + I of the
+// row, clamped to [0, U - 1].  The window [u_lo, u_hi] of valid columns is
+// [0, U - 1] for whole rows; the (v, u) mesh sweeps a block haloed in u and
+// passes the image's columns (the TPU kernel's `u_valid`), and positions
+// taken in the window's columns are the whole image's bit for bit.  Then
+// `iters` truncated
 // mean-shift steps, the score sum_s K / card_R with the kernel of the
 // last step, and over the candidates the first-max argmax and the score
 // sum.  Optionally k_best [V, S, U], the winning candidate's kernel values
@@ -31,7 +36,9 @@
 // floats a thread), which sets the resident threads of an SM; the launcher
 // picks the block size from the occupancy the runtime reports.  The linear
 // and the nearest rule are two instantiations of the core (PcRulePixel,
-// PcRuleNearest).  k_best is the core's export: after a group, one (pixel,
+// PcRuleNearest), each with a twin for a window of valid columns other than
+// the whole row (PcRulePixelWindow, PcRuleNearestWindow), so that whole
+// rows pay nothing for the window.  k_best is the core's export: after a group, one (pixel,
 // s) a thread recomputes the winner's sample and its K (consecutive threads
 // take consecutive s of one pixel, so their stores lie U floats apart).
 // The TPU's 128-lane groups, 8-pixel batches and scalar-core compaction are
@@ -56,18 +63,24 @@ RSLF_EXPORT int rslf_sweep_pixel_plan(int S, int C, int with_k, int nearest,
 
 // Launch on `stream`; returns the CUDA error code of the launch.  `bmin` /
 // `bmax` (per-pixel bounds), `k_best` and `work_count` may be null;
-// `nearest` != 0 takes the nearest rule.
+// `nearest` != 0 takes the nearest rule; [u_lo, u_hi] is the window of valid
+// sample columns ([0, U - 1] for whole rows).
 RSLF_EXPORT int rslf_sweep_pixel(
     const float* epis, int S, int U, int C, const int* act, int n_act,
     const float* bmin, const float* bmax, float dmin, float dmax, int D,
-    int s_hat, float slope, float a_coef, int iters, int nearest,
-    float* best_score, float* score_mean, float* best_depth, float* rbar,
-    float* k_best, unsigned long long* work_count, void* stream) {
+    int s_hat, float slope, float a_coef, int iters, int nearest, int u_lo,
+    int u_hi, float* best_score, float* score_mean, float* best_depth,
+    float* rbar, float* k_best, unsigned long long* work_count,
+    void* stream) {
   const PcArgs a{epis, S, U, C, act, n_act, bmin, bmax, dmin, dmax,
                  nullptr, nullptr, D, s_hat, slope, a_coef, iters, 0, 0, 0,
-                 SweepOut{best_score, score_mean, best_depth, rbar, k_best,
+                 u_lo, u_hi, SweepOut{best_score, score_mean, best_depth, rbar, k_best,
                           work_count}};
   const cudaStream_t st = (cudaStream_t)stream;
-  return nearest ? rslf_pc::launch_for_c<PcRuleNearest>(a, st)
-                 : rslf_pc::launch_for_c<PcRulePixel>(a, st);
+  // whole rows keep the rules without a window (their own instantiations)
+  if (u_lo == 0 && u_hi == U - 1)
+    return nearest ? rslf_pc::launch_for_c<PcRuleNearest>(a, st)
+                   : rslf_pc::launch_for_c<PcRulePixel>(a, st);
+  return nearest ? rslf_pc::launch_for_c<PcRuleNearestWindow>(a, st)
+                 : rslf_pc::launch_for_c<PcRulePixelWindow>(a, st);
 }

@@ -61,7 +61,7 @@ RSLF_EXPORT int rslf_sweep_rows(const float* epis, int S, int U, int C,
                                 unsigned long long* work_count, void* stream) {
   const PcArgs a{epis, S, U, C, act, n_act, nullptr, nullptr, dmin, dmax,
                  nullptr, nullptr, D, s_hat, slope, a_coef, iters, 0, 0,
-                 /*by_pixel=*/1,
+                 /*by_pixel=*/1, /*u_lo, u_hi (not read)=*/0, U - 1,
                  SweepOut{best_score, score_mean, best_depth, rbar, k_best,
                           work_count}};
   return rslf_pc::launch_for_c<PcRuleRow>(a, (cudaStream_t)stream);

@@ -14,7 +14,12 @@
 // iff floor(I) >= 0 and ceil(I) <= U - 1, or with `nearest` the one sample
 // row[round_half_away(I)], valid iff that column lies in [0, U - 1] (the
 // plain version's `interpolation="nearest"`; callers take the pixel mode
-// for it, each pixel's own grid).  Then the mean shift, scoring,
+// for it, each pixel's own grid).  With a window [u_lo, u_hi] of valid
+// columns other than [0, U - 1] (the (v, u) mesh's u-haloed block), I is
+// taken in the window's columns, I = (u - u_lo) + ..., validity against
+// [0, u_hi - u_lo] and the columns read are u_lo + floor(I) and
+// u_lo + ceil(I), clamped to [0, U - 1]: the core's position rules, shared
+// with the pixel sweep.  Then the mean shift, scoring,
 // first-max argmax and score mean, and optionally k_best.  In the masked
 // mode (allowed ranges [pmin, pmax] given) a candidate outside
 // [pmin - step, pmax + step], step = (hi - lo) / (D - 1), can neither win
@@ -36,8 +41,10 @@
 // own samples.  The 128-lane tiles stay a semantic of the caller (the
 // quantized grid bounds), not of the block shape.  Any D, any C (registers
 // for C <= 4, shared memory beyond).  The linear and the nearest rule are
-// two instantiations of the core (PcRulePixel, PcRuleNearest).  Fast mode
-// does not cap this kernel (the TPU caps only its pixel kernel).
+// two instantiations of the core (PcRulePixel, PcRuleNearest), each with a
+// twin for a window other than the whole row (PcRulePixelWindow,
+// PcRuleNearestWindow), so that whole rows pay nothing for the window.
+// Fast mode does not cap this kernel (the TPU caps only its pixel kernel).
 
 #include "sweep_pc.cuh"
 
@@ -57,22 +64,28 @@ RSLF_EXPORT int rslf_sweep_tiles_plan(int S, int C, int with_k, int masked,
 
 // Launch on `stream`; returns the CUDA error code of the launch.  `pmin` /
 // `pmax` (the masked mode), `k_best` and `work_count` may be null;
-// `nearest` != 0 takes the nearest rule.
+// `nearest` != 0 takes the nearest rule; [u_lo, u_hi] is the window of valid
+// sample columns ([0, U - 1] for whole rows).
 RSLF_EXPORT int rslf_sweep_tiles(const float* epis, int S, int U, int C,
                                  const int* act, int n_act, const float* bmin,
                                  const float* bmax, const float* pmin,
                                  const float* pmax, int D, int s_hat,
                                  float slope, float a_coef, int iters,
-                                 int nearest, float* best_score,
+                                 int nearest, int u_lo, int u_hi,
+                                 float* best_score,
                                  float* score_mean, float* best_depth,
                                  float* rbar, float* k_best,
                                  unsigned long long* work_count,
                                  void* stream) {
   const PcArgs a{epis, S, U, C, act, n_act, bmin, bmax, 0.f, 0.f,
                  pmin, pmax, D, s_hat, slope, a_coef, iters, 0, 0, 0,
-                 SweepOut{best_score, score_mean, best_depth, rbar, k_best,
+                 u_lo, u_hi, SweepOut{best_score, score_mean, best_depth, rbar, k_best,
                           work_count}};
   const cudaStream_t st = (cudaStream_t)stream;
-  return nearest ? rslf_pc::launch_for_c<PcRuleNearest>(a, st)
-                 : rslf_pc::launch_for_c<PcRulePixel>(a, st);
+  // whole rows keep the rules without a window (their own instantiations)
+  if (u_lo == 0 && u_hi == U - 1)
+    return nearest ? rslf_pc::launch_for_c<PcRuleNearest>(a, st)
+                   : rslf_pc::launch_for_c<PcRulePixel>(a, st);
+  return nearest ? rslf_pc::launch_for_c<PcRuleNearestWindow>(a, st)
+                 : rslf_pc::launch_for_c<PcRulePixelWindow>(a, st);
 }

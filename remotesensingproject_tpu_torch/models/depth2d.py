@@ -34,7 +34,10 @@ Reference quirks kept on purpose:
 The state lives on one device and each pass updates it in place.  The
 JAX package's TPU workarounds (v-slabs, static pass chunks, host-paced
 dispatch) have no counterpart: a Python loop over the schedule has the
-same semantics.
+same semantics.  A pass's sweep, median and paint are stage hooks of
+:func:`_pass_fn`, as in the JAX package: the mesh-parallel drivers
+(``parallel/``) pass halo-exchanging ones, and ``use_pallas=False`` passes
+the plain versions (:func:`plain_stages`), the JAX package's XLA path.
 """
 
 from __future__ import annotations
@@ -48,10 +51,12 @@ import torch
 
 from ..config import DEFAULT_PARAMS, DepthParams
 from ..ops.edge_confidence import edge_confidence_volume
+from ..ops.median import selective_median
 from ..ops.median_pallas import selective_median_cuda
 from ..ops.normalize import normalize_volume
+from ..ops.propagation import propagate
 from ..ops.propagation_pallas import propagate_cuda
-from ..ops.sweep import SweepResult
+from ..ops.sweep import SweepResult, sweep_pile
 from ..ops.sweep_pallas import sweep_pile_rows
 from ..ops.sweep_pallas_perpixel import sweep_pile_tiles, \
     tile_quantized_bounds
@@ -115,7 +120,8 @@ def sweep_pass(epis: torch.Tensor, active: torch.Tensor, s_hat: int,
                dmin_v_u: Optional[torch.Tensor] = None,
                dmax_v_u: Optional[torch.Tensor] = None,
                coarse_mode: str = "tile",
-               with_k_best: bool = False) -> SweepResult:
+               with_k_best: bool = False,
+               u_valid: Optional[Tuple[int, int]] = None) -> SweepResult:
     """The sweep of one pass over the ``active`` pixels, on the first
     route that applies: the pixel kernel (C in {1, 3}, D <= 1024); the row
     kernel at a uniform level (``dmin_v_u`` None); the tile kernel with
@@ -123,12 +129,15 @@ def sweep_pass(epis: torch.Tensor, active: torch.Tensor, s_hat: int,
     (``"tile"``), or on each pixel's own grid (``"pixel"``).  Nearest
     interpolation takes the pixel kernel or the tile kernel on each pixel's
     own grid (the uniform one at uniform levels) whatever ``coarse_mode``
-    says, as the JAX package's XLA path sweeps it."""
+    says, as the JAX package's XLA path sweeps it.  ``u_valid`` (the window
+    of valid sample columns of a u-haloed block) is taken by the pixel and
+    the tile kernel only: a caller that gives it passes per-pixel bounds
+    or takes the pixel kernel's route."""
     V, S, U, C = epis.shape
     if C in (1, 3) and dim_d <= MAX_DIM_D:
         return sweep_pile_pixel(epis, d_bounds[0], d_bounds[1], dim_d,
                                 s_hat, params, active, dmin_v_u, dmax_v_u,
-                                with_k_best)
+                                with_k_best, u_valid=u_valid)
     if params.interpolation == "nearest":
         if dmin_v_u is None:
             dmin_v_u, dmax_v_u = (
@@ -136,16 +145,20 @@ def sweep_pass(epis: torch.Tensor, active: torch.Tensor, s_hat: int,
                 for b in d_bounds)
         coarse_mode = "pixel"
     elif dmin_v_u is None:
+        if u_valid is not None:
+            raise ValueError("the row sweep takes no u_valid window")
         return sweep_pile_rows(epis, d_bounds[0], d_bounds[1], dim_d, s_hat,
                                params, with_k_best, active_v_u=active)
     if coarse_mode == "tile":
+        if u_valid is not None:
+            raise ValueError("the tile mode takes no u_valid window")
         qmin, qmax = tile_quantized_bounds(active, dmin_v_u, dmax_v_u,
                                            d_bounds)
         return sweep_pile_tiles(epis, qmin, qmax, dim_d, s_hat, params,
                                 with_k_best, active_v_u=active,
                                 pdmin_v_u=dmin_v_u, pdmax_v_u=dmax_v_u)
     return sweep_pile_tiles(epis, dmin_v_u, dmax_v_u, dim_d, s_hat, params,
-                            with_k_best, active_v_u=active)
+                            with_k_best, active_v_u=active, u_valid=u_valid)
 
 
 def _line_confidence(ce_s_v_u: torch.Tensor, depth_v_u: torch.Tensor,
@@ -157,7 +170,9 @@ def _line_confidence(ce_s_v_u: torch.Tensor, depth_v_u: torch.Tensor,
     d; the reference's index leaves out ``slope_factor``, and so does this
     one.  C_e is interpolated linearly along u; a sample counts iff
     floor(I) >= 0 and ceil(I) <= U - 1.  One batched gather over
-    ``[S, V, U]``: a fixed number of launches whatever S is."""
+    ``[S, V, U]``, and sums over s by halves (:func:`_sum_halves`): a few
+    launches whatever S is, and an order that does not depend on V, so a
+    block of rows (a v-split mesh) sums as the whole plane does."""
     S, V, U = ce_s_v_u.shape
     dev = ce_s_v_u.device
     zero = torch.zeros((), dtype=DTYPE, device=dev)
@@ -173,9 +188,49 @@ def _line_confidence(ce_s_v_u: torch.Tensor, depth_v_u: torch.Tensor,
     del i0, fi
     ce_i = torch.where(valid, (1.0 - t) * a + t * b, zero)
     k = k_best_v_s_u.permute(1, 0, 2)                     # [S, V, U]
-    num = torch.sum(ce_i * k, dim=0)
-    den = torch.sum(k, dim=0)
+    num = _sum_halves(ce_i * k)
+    den = _sum_halves(k)
     return torch.where(mask_v_u, num / den, zero)
+
+
+def _sum_halves(x: torch.Tensor) -> torch.Tensor:
+    """Sum over axis 0 by halves: x[:h] + x[h:2h], the odd last slice
+    carried, until one is left.  Every add is elementwise, so the result
+    does not depend on the other axes' extents (``torch.sum``'s order
+    does)."""
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        y = x[:h] + x[h:2 * h]
+        x = torch.cat([y, x[2 * h:]]) if x.shape[0] % 2 else y
+    return x[0]
+
+
+def plain_stages(epis: torch.Tensor, dim_d: int, params: DepthParams,
+                 d_bounds: Tuple[float, float]) -> dict:
+    """The stage hooks of ``use_pallas=False``: the JAX package's XLA path
+    (its ``_pass_fn`` without Pallas), on whatever device ``epis`` lies.
+    The plain sweep on each pixel's own grid (the ctor bounds at uniform
+    levels: no row rule, no tile quantisation, no fast cap), the plain
+    median and the plain paint."""
+    V, S, U, C = epis.shape
+    line = params.score_version == "line"
+
+    def sweep_fn(active, dmin_v_u, dmax_v_u, s_hat):
+        if dmin_v_u is None:
+            dmin_v_u, dmax_v_u = (
+                torch.full((V, U), f32(b), dtype=DTYPE, device=epis.device)
+                for b in d_bounds)
+        return sweep_pile(epis, dmin_v_u, dmax_v_u, dim_d, s_hat, params,
+                          with_k_best=line)
+
+    def prop_fn(claim, frames, filtered, rbar, source_mask, s_hat,
+                payloads):
+        return propagate(claim, frames, filtered, rbar, source_mask, s_hat,
+                         params.slope_factor, params.propagation_epsilon,
+                         payloads)
+
+    return dict(sweep_fn=sweep_fn, median_fn=selective_median,
+                prop_fn=prop_fn)
 
 
 def _pass_fn(epis: torch.Tensor, frames: torch.Tensor, state: Depth2DState,
@@ -183,11 +238,33 @@ def _pass_fn(epis: torch.Tensor, frames: torch.Tensor, state: Depth2DState,
              d_bounds: Tuple[float, float],
              dmin_s_v_u: Optional[torch.Tensor] = None,
              dmax_s_v_u: Optional[torch.Tensor] = None,
-             coarse_mode: str = "tile") -> Depth2DState:
+             coarse_mode: str = "tile", sweep_fn=None, median_fn=None,
+             prop_fn=None) -> Depth2DState:
     """One center-outward pass (sweep + merge + median + propagation),
     updating ``state`` in place.  Per-pixel bounds are given at the
-    bounds-edited levels and None at uniform ones."""
+    bounds-edited levels and None at uniform ones.
+
+    The stage hooks, as in the JAX package's ``_pass_fn``, replace one stage
+    each (None: the kernels): ``sweep_fn(active, dmin_v_u, dmax_v_u, s_hat)
+    -> SweepResult`` (the bound planes None at uniform levels),
+    ``median_fn(src, frame, mask, size, epsilon)`` with the signature of
+    ``selective_median``, and ``prop_fn(claim, frames, filtered, rbar,
+    source_mask, s_hat, payloads)``, which paints in place.  Every merge
+    and state update stays here, so there is one pass implementation."""
     line = params.score_version == "line"
+    if sweep_fn is None:
+        def sweep_fn(act, dmin_v_u, dmax_v_u, sh):
+            return sweep_pass(epis, act, sh, dim_d, params, d_bounds,
+                              dmin_v_u, dmax_v_u, coarse_mode,
+                              with_k_best=line)
+    if median_fn is None:
+        median_fn = selective_median_cuda
+    if prop_fn is None:
+        def prop_fn(claim, frames_, filtered, rbar, source_mask, sh,
+                    payloads):
+            return propagate_cuda(claim, frames_, filtered, rbar,
+                                  source_mask, sh, params.slope_factor,
+                                  params.propagation_epsilon, payloads)
     ce_p = state.ce[s_hat]
     mask_p = state.ce_mask[s_hat]
     zero = torch.zeros((), dtype=DTYPE, device=epis.device)
@@ -201,8 +278,7 @@ def _pass_fn(epis: torch.Tensor, frames: torch.Tensor, state: Depth2DState,
     if dmin_s_v_u is not None:
         dmin_v_u = dmin_s_v_u[s_hat].contiguous()
         dmax_v_u = dmax_s_v_u[s_hat].contiguous()
-    res = sweep_pass(epis, active, s_hat, dim_d, params, d_bounds, dmin_v_u,
-                     dmax_v_u, coarse_mode, with_k_best=line)
+    res = sweep_fn(active, dmin_v_u, dmax_v_u, s_hat)
 
     ok = res.best_score > params.raw_score_threshold
     good = active & ok
@@ -222,9 +298,9 @@ def _pass_fn(epis: torch.Tensor, frames: torch.Tensor, state: Depth2DState,
 
     # selective median of the s_hat plane, gated by the post-sweep mask;
     # the filtered values drive propagation but are not stored
-    filtered = selective_median_cuda(depth_new, frames[s_hat], mask_new,
-                                     params.median_filter_size,
-                                     params.median_filter_epsilon)
+    filtered = median_fn(depth_new, frames[s_hat], mask_new,
+                         params.median_filter_size,
+                         params.median_filter_epsilon)
     payloads = [(state.best_depth, filtered), (state.disp_conf, conf_new)]
     if line:
         # C_l is refreshed only where this pass's sweep succeeded (k_best
@@ -239,9 +315,8 @@ def _pass_fn(epis: torch.Tensor, frames: torch.Tensor, state: Depth2DState,
         source_mask = conf_new > params.disp_score_threshold
     else:
         source_mask = mask_new
-    propagate_cuda(state.claim, frames, filtered, rbar_new, source_mask,
-                   s_hat, params.slope_factor, params.propagation_epsilon,
-                   payloads)
+    prop_fn(state.claim, frames, filtered, rbar_new, source_mask, s_hat,
+            payloads)
     return state
 
 
@@ -260,16 +335,21 @@ class Depth2DComputer:
     :func:`sweep_pass`); the pixel kernel's route ignores it.
     ``early_stop=False`` runs every pass of the schedule; ``verbose``
     prints a progress line every :data:`PASS_CHUNK` passes, as the JAX
-    package does after each chunk of passes (one more host sync each)."""
+    package does after each chunk of passes (one more host sync each).
+    ``use_pallas=False`` runs the plain versions of the sweep, median and
+    paint on the computer's device (:func:`plain_stages`, the JAX package's
+    XLA path); the default (None) and True run the kernels."""
 
     def __init__(self, epis_v_s_u_c, dmin: float, dmax: float, dim_d: int,
                  epi_scale_factor: float = -1.0,
                  params: DepthParams = DEFAULT_PARAMS,
                  verbose: bool = False, early_stop: bool = True,
-                 device=None, coarse_mode: str = "tile"):
+                 device=None, coarse_mode: str = "tile",
+                 use_pallas: Optional[bool] = None):
         if coarse_mode not in COARSE_MODES:
             raise ValueError(f"coarse_mode must be one of {COARSE_MODES}")
         self.coarse_mode = coarse_mode
+        self.use_pallas = use_pallas
         self.device = resolve_device(device)
         epis = _as_tensor(epis_v_s_u_c, self.device)
         if epis.dim() == 3:
@@ -316,6 +396,18 @@ class Depth2DComputer:
         self._dmax_arr = dmax_s_v_u.to(self.device, DTYPE).contiguous()
         self._bounds_edited = True
 
+    def rebuild_bounds(self):
+        """Back to the ctor's uniform bounds (a checkpoint of a uniform
+        level loaded into a computer whose bounds were edited)."""
+        self._dmin_arr = None
+        self._dmax_arr = None
+        self._bounds_edited = False
+
+    def drop_rbar(self):
+        """Free the r_bar planes: only the level's own passes read them."""
+        self.state.rbar = torch.zeros((1, 1, 1, 1), dtype=DTYPE,
+                                      device=self.device)
+
     # -------------------------------------------------------------------
 
     def initial_state(self) -> Depth2DState:
@@ -344,13 +436,17 @@ class Depth2DComputer:
         if self._bounds_edited:
             bounds = dict(dmin_s_v_u=self.dmin_s_v_u,
                           dmax_s_v_u=self.dmax_s_v_u)
+        hooks = {}
+        if self.use_pallas is False:
+            hooks = plain_stages(self.epis, self.dim_d, self.params,
+                                 (self.dmin, self.dmax))
         schedule = center_outward_schedule(S)
         self.passes_run = 0
         t_chunk = time.perf_counter()
         for s_hat in schedule:
             _pass_fn(self.epis, frames, state, s_hat, dim_d=self.dim_d,
                      params=self.params, d_bounds=(self.dmin, self.dmax),
-                     coarse_mode=self.coarse_mode, **bounds)
+                     coarse_mode=self.coarse_mode, **bounds, **hooks)
             self.passes_run += 1
             # a pass on a state with nothing left to claim is a no-op
             done = self.early_stop and not bool(

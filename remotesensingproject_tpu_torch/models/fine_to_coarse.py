@@ -12,6 +12,11 @@ Each level's computer normalizes its own input.  uint8 inputs stay in the
 rounded uint8 domain through the pyramid (OpenCV's CV_8U saturate_cast):
 each downsampled level is rounded half to even, as ``jnp.round`` does in
 the JAX package, and clamped to [0, 255].
+
+With a ``mesh`` (``parallel.mesh``) every rank builds the pyramid from the
+full volume and each level is a ``ShardedDepth2DComputer`` over the mesh;
+the bounds of the next level and the fusion run on the gathered maps, so
+every rank holds the same results (every rank must call the getters).
 """
 
 from __future__ import annotations
@@ -33,11 +38,12 @@ from .depth2d import Depth2DComputer, _as_tensor
 
 
 class FineToCoarse:
-    """Runs on CUDA unless ``device`` names another device.
-    ``coarse_mode`` and ``early_stop`` are handed to every level's
-    Depth2DComputer.  ``verbose`` prints a line per level;
-    ``pass_progress`` (default: ``verbose``) also prints the levels' pass
-    progress."""
+    """Runs on CUDA unless ``device`` names another device (with a
+    ``mesh``: the mesh's device unless ``device`` names one).
+    ``coarse_mode``, ``early_stop`` and ``use_pallas`` (False: the plain
+    versions, the JAX package's XLA path) are handed to every level's
+    computer.  ``verbose`` prints a line per level; ``pass_progress``
+    (default: ``verbose``) also prints the levels' pass progress."""
 
     def __init__(self, epis_v_s_u_c, dmin: float, dmax: float, dim_d: int,
                  epi_scale_factor: float = -1.0,
@@ -45,10 +51,14 @@ class FineToCoarse:
                  pyramid: PyramidParams = DEFAULT_PYRAMID,
                  early_stop: bool = True, verbose: bool = False,
                  pass_progress: Optional[bool] = None, device=None,
-                 coarse_mode: str = "tile"):
+                 coarse_mode: str = "tile",
+                 use_pallas: Optional[bool] = None, mesh=None):
         if pass_progress is None:
             pass_progress = verbose
+        if mesh is not None and device is None:
+            device = mesh.device
         self.device = resolve_device(device)
+        self.mesh = mesh
         epis = _as_tensor(epis_v_s_u_c, self.device)
         if epis.dim() == 3:
             epis = epis[..., None]
@@ -59,6 +69,8 @@ class FineToCoarse:
         self.verbose = verbose
         self.computers: List[Depth2DComputer] = []
         self.level_params: List[DepthParams] = []
+        #: (V, S, U) of each level
+        self.level_shapes: List[Tuple[int, int, int]] = []
         # host seconds of each level's run(), filled by run()
         self.level_seconds: List[float] = []
 
@@ -71,16 +83,27 @@ class FineToCoarse:
                and level.shape[2] > pyramid.min_spatial_dim
                and len(self.computers) < max_depth):
             lvl_params = params.with_slope_factor(level.shape[2] / start_dim_u)
-            if verbose:
+            if verbose and (mesh is None or mesh.rank == 0):
                 print(f"level {len(self.computers)}: (v={level.shape[0]}, "
                       f"u={level.shape[2]}) "
                       f"slope_factor={lvl_params.slope_factor:.4f}")
             lvl_input = level.to(torch.uint8) if self.is_uint8 else level
-            self.computers.append(Depth2DComputer(
-                lvl_input, dmin, dmax, dim_d, epi_scale_factor, lvl_params,
-                verbose=pass_progress, early_stop=early_stop,
-                device=self.device, coarse_mode=coarse_mode))
+            if mesh is not None:
+                from ..parallel.driver import ShardedDepth2DComputer
+                self.computers.append(ShardedDepth2DComputer(
+                    lvl_input, dmin, dmax, dim_d, mesh=mesh,
+                    epi_scale_factor=epi_scale_factor, params=lvl_params,
+                    verbose=pass_progress, early_stop=early_stop,
+                    use_pallas=use_pallas, coarse_mode=coarse_mode,
+                    device=self.device))
+            else:
+                self.computers.append(Depth2DComputer(
+                    lvl_input, dmin, dmax, dim_d, epi_scale_factor,
+                    lvl_params, verbose=pass_progress, early_stop=early_stop,
+                    device=self.device, coarse_mode=coarse_mode,
+                    use_pallas=use_pallas))
             self.level_params.append(lvl_params)
+            self.level_shapes.append(tuple(level.shape[:3]))
             level = downsample_epis(level)
             if self.is_uint8:
                 level = torch.clamp(torch.round(level), 0, 255)
@@ -105,7 +128,7 @@ class FineToCoarse:
                 if ckpt_dir:
                     save_level(ckpt_dir, p, computer)
             self.level_seconds.append(time.perf_counter() - t0)
-            if self.verbose:
+            if self.verbose and (self.mesh is None or self.mesh.rank == 0):
                 what = "restored" if restored else "done"
                 print(f"level {p} {what} in {self.level_seconds[-1]:.2f}s "
                       f"({computer.passes_run} passes)")
@@ -116,8 +139,7 @@ class FineToCoarse:
                     computer.get_valid_depths_mask_s_v_u(),
                     nxt.dmin_s_v_u, nxt.dmax_s_v_u))
             # r_bar is only read while the level's own passes paint
-            computer.state.rbar = torch.zeros((1, 1, 1, 1), dtype=DTYPE,
-                                              device=self.device)
+            computer.drop_rbar()
 
     def get_results(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Fused disparity maps + validity at the finest scale
@@ -155,12 +177,12 @@ class FineToCoarse:
                              saturate: bool = True):
         """Per-level slope-coloured EPI at (scaled) row v
         (rslf_fine_to_coarse.hpp:431-487)."""
-        V0 = self.computers[0].epis.shape[0]
+        V0 = self.level_shapes[0][0]
         if v < 0:
             v = int(round(V0 / 2.0))  # half to even, as in the JAX package
         slices, masks = [], []
-        for c in self.computers:
-            vs = int(round(v * c.epis.shape[0] / V0))
+        for c, shape in zip(self.computers, self.level_shapes):
+            vs = int(round(v * shape[0] / V0))
             d = c.get_depths_s_v_u()[:, vs, :]
             m = c.get_valid_depths_mask_s_v_u()[:, vs, :]
             slices.append(torch.where(m, d, torch.zeros((), dtype=d.dtype,
@@ -172,7 +194,7 @@ class FineToCoarse:
                                saturate: bool = True):
         """Per-level colormapped disparity maps at frame s
         (rslf_fine_to_coarse.hpp:490-518)."""
-        S = self.computers[0].epis.shape[1]
+        S = self.level_shapes[0][1]
         if s < 0:
             s = int(round(S / 2.0))  # half to even, as in the JAX package
         slices = [c.get_depths_s_v_u()[s] for c in self.computers]

@@ -9,7 +9,9 @@ Nearest interpolation, which the JAX package sweeps with its XLA
 ``sweep_pile`` (per-pixel rounding), takes the pass's per-pixel route
 instead of the row sweep: the pixel kernel with every pixel active for
 C in {1, 3}, the tile kernel on the uniform grid otherwise.  On the CPU the
-plain versions run instead.
+plain versions run instead.  ``use_pallas=False`` runs the plain sweep on
+each pixel's own (uniform) grid and the plain median on the computer's
+device: the JAX package's XLA path.
 """
 
 from __future__ import annotations
@@ -20,10 +22,12 @@ import torch
 
 from ..config import DEFAULT_PARAMS, DepthParams
 from ..ops.edge_confidence import edge_confidence_frame
+from ..ops.median import selective_median
 from ..ops.median_pallas import selective_median_cuda
 from ..ops.normalize import normalize_volume
+from ..ops.sweep import sweep_pile
 from ..ops.sweep_pallas import sweep_pile_rows
-from ..types import resolve_device
+from ..types import DTYPE, f32, resolve_device
 from ..utils.plot import coloured_epi_from_pile, disparity_map_image
 from .depth2d import _as_tensor, sweep_pass
 
@@ -40,11 +44,14 @@ class PileResult(NamedTuple):
 class Depth1DComputerPile:
     """Driver mirroring Depth1DComputer_pile's ctor / run / getters.
 
-    Runs on CUDA unless ``device`` names another device."""
+    Runs on CUDA unless ``device`` names another device; the kernels, or
+    with ``use_pallas=False`` the plain versions."""
 
     def __init__(self, epis_v_s_u_c, dmin: float, dmax: float, dim_d: int,
                  s_hat: int = -1, epi_scale_factor: float = -1.0,
-                 params: DepthParams = DEFAULT_PARAMS, device=None):
+                 params: DepthParams = DEFAULT_PARAMS, device=None,
+                 use_pallas: Optional[bool] = None):
+        self.use_pallas = use_pallas
         self.device = resolve_device(device)
         epis = _as_tensor(epis_v_s_u_c, self.device)
         if epis.dim() == 3:
@@ -63,7 +70,14 @@ class Depth1DComputerPile:
         p = self.params
         frame = self.epis[:, self.s_hat].contiguous()     # [V, U, C]
         ce, mask = edge_confidence_frame(frame, p)
-        if p.interpolation == "nearest":
+        median = selective_median_cuda
+        if self.use_pallas is False:
+            V, _, U, _ = self.epis.shape
+            res = sweep_pile(self.epis, *(
+                torch.full((V, U), f32(b), dtype=DTYPE, device=self.device)
+                for b in (self.dmin, self.dmax)), self.dim_d, self.s_hat, p)
+            median = selective_median
+        elif p.interpolation == "nearest":
             every = torch.ones(mask.shape, dtype=torch.bool,
                                device=self.device)
             res = sweep_pass(self.epis, every, self.s_hat, self.dim_d, p,
@@ -85,9 +99,8 @@ class Depth1DComputerPile:
 
         # selective median over the (v, u) disparity slice, gated by the
         # post-sweep edge mask and the s_hat frame (core.hpp:877-892)
-        filtered = selective_median_cuda(best_raw, frame, mask_out,
-                                         p.median_filter_size,
-                                         p.median_filter_epsilon)
+        filtered = median(best_raw, frame, mask_out, p.median_filter_size,
+                          p.median_filter_epsilon)
         self.result = PileResult(ce_out, mask_out, filtered, best_raw,
                                  disp_conf, rbar)
         return self.result

@@ -25,16 +25,16 @@ import torch
 from ..types import DTYPE, f32, normsq, round_half_away
 
 
-def _shifted(x: torch.Tensor, o: int, fill) -> torch.Tensor:
-    """y[:, u] = x[:, u - o] where 0 <= u - o < U, else ``fill``."""
-    U = x.shape[1]
-    out = torch.full_like(x, fill)
-    if o >= U or o <= -U:
-        return out
-    if o >= 0:
-        out[:, o:] = x[:, :U - o]
-    else:
-        out[:, :U + o] = x[:, -o:]
+def _shifted(x: torch.Tensor, o: int, fill, width: int,
+             origin: int = 0) -> torch.Tensor:
+    """y[:, u] = x[:, origin + u - o] for u in [0, width) where that
+    column lies in x, else ``fill``."""
+    Us = x.shape[1]
+    out = torch.full((x.shape[0], width) + tuple(x.shape[2:]), fill,
+                     dtype=x.dtype, device=x.device)
+    lo, hi = max(0, o - origin), min(width, Us + o - origin)
+    if lo < hi:
+        out[:, lo:hi] = x[:, origin + lo - o:origin + hi - o]
     return out
 
 
@@ -55,7 +55,8 @@ def propagate(claim_s_v_u: torch.Tensor, frames_s_v_u_c: torch.Tensor,
               depth_f_v_u: torch.Tensor, rbar_v_u_c: torch.Tensor,
               source_mask_v_u: torch.Tensor, s_hat: int,
               slope_factor: float, epsilon: float,
-              payloads: Sequence[Tuple[torch.Tensor, torch.Tensor]]):
+              payloads: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+              u_origin: int = 0):
     """One pass of line painting, in place.
 
     Args:
@@ -66,6 +67,11 @@ def propagate(claim_s_v_u: torch.Tensor, frames_s_v_u_c: torch.Tensor,
       source_mask_v_u: ``[V, U]`` bool propagation criterion.
       payloads: (target ``[S, V, U]``, source ``[V, U]``) pairs painted
         under the propagation condition.
+      u_origin: the source planes (depth, r_bar, mask, payload sources)
+        may be ``Us`` >= U columns wide, the targets' column 0 at their
+        column ``u_origin``: a source at column j paints target
+        j - u_origin + o (JAX ``propagation.py:90-98``; the (v, u) mesh
+        passes sources haloed in u).  Default 0 with ``Us`` = U.
 
     Returns:
       (claim, tuple of targets): the same tensors, updated in place.
@@ -89,13 +95,14 @@ def propagate(claim_s_v_u: torch.Tensor, frames_s_v_u_c: torch.Tensor,
         offs_r = round_half_away(offs_num * ds)
         frame = frames_s_v_u_c[s]
         for o in range(o_hi, o_lo - 1, -1):
-            sm = _shifted(source_mask_v_u, o, False)
-            off_sh = _shifted(offs_r, o, 0.0)
-            rb_sh = _shifted(rbar_v_u_c, o, 0.0)
+            sm = _shifted(source_mask_v_u, o, False, U, u_origin)
+            off_sh = _shifted(offs_r, o, 0.0, U, u_origin)
+            rb_sh = _shifted(rbar_v_u_c, o, 0.0, U, u_origin)
             cond = (sm & (off_sh == float(o)) & claim_s
                     & (normsq(frame - rb_sh) < eps_sq))
             for tgt, src in zip(targets, sources):
-                tgt[s] = torch.where(cond, _shifted(src, o, 0.0), tgt[s])
+                tgt[s] = torch.where(cond, _shifted(src, o, 0.0, U, u_origin),
+                                     tgt[s])
             claim_s = claim_s & ~cond
         claim_s_v_u[s] = claim_s
     return claim_s_v_u, targets

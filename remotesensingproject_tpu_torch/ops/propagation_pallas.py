@@ -9,7 +9,8 @@ in place.  The kernel is driven from the sources (one offset rounding per
 frame and source, the smallest qualifying source column wins a target), so
 it takes the depths, the source mask and the slope factor as they are and
 needs no offset range.  It carries one to three payloads: depth and
-disp_conf, and line_conf in line mode.
+disp_conf, and line_conf in line mode.  With ``u_origin`` the sources may
+be wider than the targets (the (v, u) mesh's u-haloed sources).
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ def _paint_fn():
     lib = cuda_build.load("paint")
     fn = lib.rslf_paint
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P, P, P, P, P, I, I, I, I, I, F, F, F, I,
+    fn.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, F, F, F, I,
                    P, P, P, P, P, P, I, P]
     fn.restype = ctypes.c_int
     return lib, fn
@@ -45,8 +46,9 @@ def propagate_cuda(claim_s_v_u: torch.Tensor, frames_s_v_u_c: torch.Tensor,
                    source_mask_v_u: torch.Tensor, s_hat: int,
                    slope_factor: float, epsilon: float,
                    payloads: Sequence[Tuple[torch.Tensor, torch.Tensor]],
-                   tile: int = 0):
-    """Drop-in for ``ops.propagation.propagate`` (bitwise equal).
+                   u_origin: int = 0, tile: int = 0):
+    """Drop-in for ``ops.propagation.propagate`` (bitwise equal), with its
+    ``u_origin``: the source planes may be ``Us`` >= U columns wide.
 
     ``tile`` is the number of target columns a block of the kernel takes,
     at most :data:`MAX_TILE`; 0 lets the launcher choose, and the result
@@ -55,9 +57,13 @@ def propagate_cuda(claim_s_v_u: torch.Tensor, frames_s_v_u_c: torch.Tensor,
     if dev.type != "cuda":
         return propagate(claim_s_v_u, frames_s_v_u_c, depth_f_v_u,
                          rbar_v_u_c, source_mask_v_u, s_hat, slope_factor,
-                         epsilon, payloads)
+                         epsilon, payloads, u_origin)
     S, V, U = claim_s_v_u.shape
     C = frames_s_v_u_c.shape[-1]
+    Us = depth_f_v_u.shape[1]
+    if not (Us >= U and 0 <= u_origin <= Us - U):
+        raise ValueError(f"paint: sources {Us} columns wide cannot hold "
+                         f"{U} target columns from column {u_origin}")
     if not 1 <= len(payloads) <= MAX_PAYLOADS:
         raise NotImplementedError(
             f"the CUDA paint carries 1 to {MAX_PAYLOADS} payloads")
@@ -79,7 +85,8 @@ def propagate_cuda(claim_s_v_u: torch.Tensor, frames_s_v_u_c: torch.Tensor,
     ptrs = [cuda_build.ptr(t) for tgt, src in pairs for t in (src, tgt)]
     err = fn(cuda_build.ptr(claim_s_v_u), cuda_build.ptr(frames_s_v_u_c),
              cuda_build.ptr(depth_f_v_u), cuda_build.ptr(source_mask_v_u),
-             cuda_build.ptr(rbar_v_u_c), S, V, U, C, int(s_hat),
+             cuda_build.ptr(rbar_v_u_c), S, V, U, C, Us, int(u_origin),
+             int(s_hat),
              f32(slope_factor), chan_scale(C),
              float(np.float32(epsilon) ** 2), len(payloads), *ptrs,
              int(tile),

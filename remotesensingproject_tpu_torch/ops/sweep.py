@@ -14,6 +14,12 @@ Numerics mirrored exactly:
 * sheared sample index  I[s, d] = u + ((s_hat - s) * D[d]) * slope;
 * linear interpolation, a sample valid iff floor(I) >= 0 and
   ceil(I) <= U - 1, with card_R the valid count;
+* ``u_valid`` (lo, hi), the window of valid columns of a u-haloed block
+  (JAX ``ops/sweep.py:62-100``): I is taken in the window's columns,
+  I = (u - lo) + ..., valid against [0, hi - lo], and columns lo + floor(I)
+  and lo + ceil(I) are read, clamped to [0, U - 1], so that a haloed
+  block's positions are the whole image's bit for bit (the JAX package
+  takes them in the block's columns: the same up to the last ulp);
 * ``mean_shift_max_iter`` truncated mean-shift iterations, NaN -> 0 and
   r_bar floored at 0; the score uses the kernel of the LAST iteration
   while the reported r_bar has all updates applied;
@@ -26,7 +32,7 @@ the CUDA kernel uses, so that the two agree on the card.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,11 +70,15 @@ def _sum_s(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _radiances(epis, delta_v_u, ds_s, u_idx, slope, interpolation):
-    """Sheared radiance samples for one candidate plane.
+def _radiances(epis, delta_v_u, ds_s, u_idx, slope, interpolation, lo=0,
+               hi=None):
+    """Sheared radiance samples for one candidate plane, ``u_idx`` the
+    columns in the window [lo, hi] of valid columns (u - lo; the default
+    window is [0, U - 1]).
 
     Returns (valpos, valraw [V, S, U, C], valid [V, S, U] bool)."""
     V, S, U, C = epis.shape
+    hi = U - 1 if hi is None else hi
     shift = ds_s[None, :, None] * delta_v_u[:, None, :] * slope  # [V, S, U]
     idx = u_idx + shift
 
@@ -78,15 +88,15 @@ def _radiances(epis, delta_v_u, ds_s, u_idx, slope, interpolation):
 
     if interpolation == "nearest":
         ri = torch.sign(idx) * torch.floor(torch.abs(idx) + 0.5)
-        valid = (ri >= 0) & (ri <= U - 1)
-        val = gather(torch.clamp(ri, 0, U - 1))
+        valid = (ri >= 0) & (ri <= hi - lo)
+        val = gather(torch.clamp(ri + lo, 0, U - 1))
     else:
         fi = torch.floor(idx)
         ci = torch.ceil(idx)
         t = idx - fi
-        valid = (fi >= 0) & (ci <= U - 1)
-        a = gather(torch.clamp(fi, 0, U - 1))
-        b = gather(torch.clamp(ci, 0, U - 1))
+        valid = (fi >= 0) & (ci <= hi - lo)
+        a = gather(torch.clamp(fi + lo, 0, U - 1))
+        b = gather(torch.clamp(ci + lo, 0, U - 1))
         tt = t[..., None]
         val = (1.0 - tt) * a + tt * b
     valid_c = valid[..., None]
@@ -118,7 +128,8 @@ def sweep_pile(epis_v_s_u_c: torch.Tensor, dmin_v_u: torch.Tensor,
                dmax_v_u: torch.Tensor, dim_d: int, s_hat: int,
                params: DepthParams, with_k_best: bool = False,
                pdmin_v_u: Optional[torch.Tensor] = None,
-               pdmax_v_u: Optional[torch.Tensor] = None) -> SweepResult:
+               pdmax_v_u: Optional[torch.Tensor] = None,
+               u_valid: Optional[Tuple[int, int]] = None) -> SweepResult:
     """Dense sweep over all EPIs.
 
     Args:
@@ -131,12 +142,18 @@ def sweep_pile(epis_v_s_u_c: torch.Tensor, dmin_v_u: torch.Tensor,
         candidate outside [pdmin - step, pdmax + step], step = (dmax -
         dmin) / (dim_d - 1), can neither win nor count in the mean, which
         is then (sum * dim_d / max(n_allowed, 1)) / dim_d.
+      u_valid: optional (lo, hi) window of valid sample columns in the
+        volume's own u coordinates (default (0, U - 1)); it may reach
+        beyond the volume, whose columns are read clamped.  Positions are
+        taken in the window's columns (see the module docstring).
     """
     V, S, U, C = epis_v_s_u_c.shape
     dev = epis_v_s_u_c.device
     s_hat = int(s_hat)
     ds_s = float(s_hat) - torch.arange(S, dtype=DTYPE, device=dev)
-    u_idx = torch.arange(U, dtype=DTYPE, device=dev)
+    lo, hi = (0, U - 1) if u_valid is None else (int(u_valid[0]),
+                                                  int(u_valid[1]))
+    u_idx = torch.arange(-lo, U - lo, dtype=DTYPE, device=dev)
     slope = f32(params.slope_factor)
     rbar_init = epis_v_s_u_c[:, s_hat]                      # [V, U, C]
 
@@ -157,7 +174,8 @@ def sweep_pile(epis_v_s_u_c: torch.Tensor, dmin_v_u: torch.Tensor,
     for d in range(dim_d):
         delta = dmin_v_u + (drange * float(d)) / den
         valpos, valraw, valid = _radiances(
-            epis_v_s_u_c, delta, ds_s, u_idx, slope, params.interpolation)
+            epis_v_s_u_c, delta, ds_s, u_idx, slope, params.interpolation,
+            lo, hi)
         card = _sum_s(valid.to(DTYPE))
         score_num, rbar, k_last = _mean_shift(valpos, valraw, valid,
                                               rbar_init, params)

@@ -11,7 +11,9 @@ sweep, whose grid bounds :func:`tile_quantized_bounds` shares per 128-lane
 tile.  Any D and any C, under linear or nearest interpolation (callers
 take the pixel mode for nearest, as the JAX package sweeps it on each
 pixel's own grid).  Fast mode does not cap this sweep (the JAX package
-caps only its pixel kernel).  The kernel is the (pixel, candidate) core
+caps only its pixel kernel).  ``u_valid`` sets the window of valid sample
+columns, through the core's position rules shared with the pixel sweep
+(the (v, u) mesh sweeps a u-haloed block in pixel mode).  The kernel is the (pixel, candidate) core
 ``csrc/sweep_pc.cuh``; its launcher chooses the block size and the pixels
 of a group.
 
@@ -64,7 +66,7 @@ def _tiles_fn():
     lib = cuda_build.load("sweep_tiles")
     fn = lib.rslf_sweep_tiles
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P, I, I, I, P, I, P, P, P, P, I, I, F, F, I, I,
+    fn.argtypes = [P, I, I, I, P, I, P, P, P, P, I, I, F, F, I, I, I, I,
                    P, P, P, P, P, P, P]
     fn.restype = ctypes.c_int
     plan = lib.rslf_sweep_tiles_plan
@@ -94,7 +96,8 @@ def sweep_pile_tiles(epis_v_s_u_c: torch.Tensor, dmin_v_u: torch.Tensor,
                      active_v_u: Optional[torch.Tensor] = None,
                      pdmin_v_u: Optional[torch.Tensor] = None,
                      pdmax_v_u: Optional[torch.Tensor] = None,
-                     work_count: Optional[torch.Tensor] = None
+                     work_count: Optional[torch.Tensor] = None,
+                     u_valid: Optional[Tuple[int, int]] = None
                      ) -> SweepResult:
     """Per-pixel-bounds sweep of the active pixels.
 
@@ -108,6 +111,8 @@ def sweep_pile_tiles(epis_v_s_u_c: torch.Tensor, dmin_v_u: torch.Tensor,
         masked mode).
       work_count: optional int64 CUDA tensor of one element; the kernel
         adds the valid samples times mean-shift steps it ran.
+      u_valid: optional (lo, hi) window of valid sample columns (default
+        (0, U - 1)); the columns read stay clamped to the volume.
 
     Returns:
       SweepResult; on CUDA zeros at the pixels not swept.
@@ -117,7 +122,7 @@ def sweep_pile_tiles(epis_v_s_u_c: torch.Tensor, dmin_v_u: torch.Tensor,
     masked = pdmin_v_u is not None
     if dev.type != "cuda":
         return sweep_pile(epis_v_s_u_c, dmin_v_u, dmax_v_u, dim_d, s_hat,
-                          params, with_k_best, pdmin_v_u, pdmax_v_u)
+                          params, with_k_best, pdmin_v_u, pdmax_v_u, u_valid)
 
     cuda_build.require("epis", epis_v_s_u_c, dev)
     planes = [("dmin_v_u", dmin_v_u), ("dmax_v_u", dmax_v_u)]
@@ -134,13 +139,15 @@ def sweep_pile_tiles(epis_v_s_u_c: torch.Tensor, dmin_v_u: torch.Tensor,
     if n_act == 0:
         return out
 
+    lo, hi = (0, U - 1) if u_valid is None else u_valid
     lib, fn, _ = _tiles_fn()
     a_coef = f32(chan_scale(C) / (params.kernel_h * params.kernel_h))
     p = cuda_build.ptr
     err = fn(p(epis_v_s_u_c), S, U, C, p(act), n_act, p(dmin_v_u),
              p(dmax_v_u), p(pdmin_v_u), p(pdmax_v_u), dim_d, int(s_hat),
              f32(params.slope_factor), a_coef, params.mean_shift_max_iter,
-             int(params.interpolation == "nearest"), p(out.best_score),
+             int(params.interpolation == "nearest"), int(lo), int(hi),
+             p(out.best_score),
              p(out.score_mean),
              p(out.best_depth), p(out.rbar), p(out.k_best), p(work_count),
              cuda_build.stream_ptr(dev))

@@ -5,7 +5,9 @@ whose Pallas kernel ``_pixel_kernel`` the CUDA kernel replaces.  The
 kernel sweeps only the active pixels of a pass, with the uniform candidate
 grid or with each pixel's own [dmin, dmax] grid (the bounds-edited pyramid
 levels), D <= 1024 candidates and C in {1, 3}, under linear or nearest
-interpolation, and exports ``k_best`` for line mode.  The kernel is the
+interpolation, and exports ``k_best`` for line mode.  ``u_valid`` sets
+the window of valid sample columns, as the JAX kernel's does (the (v, u)
+mesh sweeps a u-haloed block).  The kernel is the
 (pixel, candidate) core ``csrc/sweep_pc.cuh`` in its unmasked mode; its
 launcher chooses the block size and the pixels of a group.
 
@@ -21,7 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -56,7 +58,7 @@ def _sweep_fn():
     lib = cuda_build.load("sweep_pixel")
     fn = lib.rslf_sweep_pixel
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P, I, I, I, P, I, P, P, F, F, I, I, F, F, I, I,
+    fn.argtypes = [P, I, I, I, P, I, P, P, F, F, I, I, F, F, I, I, I, I,
                    P, P, P, P, P, P, P]
     fn.restype = ctypes.c_int
     plan = lib.rslf_sweep_pixel_plan
@@ -84,7 +86,8 @@ def sweep_pile_pixel(epis_v_s_u_c: torch.Tensor, dmin: float, dmax: float,
                      dmin_v_u: Optional[torch.Tensor] = None,
                      dmax_v_u: Optional[torch.Tensor] = None,
                      with_k_best: bool = False,
-                     work_count: Optional[torch.Tensor] = None
+                     work_count: Optional[torch.Tensor] = None,
+                     u_valid: Optional[Tuple[int, int]] = None
                      ) -> SweepResult:
     """Sweep the active pixels of one pass.
 
@@ -98,6 +101,8 @@ def sweep_pile_pixel(epis_v_s_u_c: torch.Tensor, dmin: float, dmax: float,
       work_count: optional int64 CUDA tensor of one element; the kernel
         adds the valid samples times mean-shift steps it ran, the count
         its arithmetic bound is computed from.
+      u_valid: optional (lo, hi) window of valid sample columns (default
+        (0, U - 1)); the columns read stay clamped to the volume.
 
     Returns:
       SweepResult; at inactive pixels the kernel leaves zeros and the
@@ -114,7 +119,7 @@ def sweep_pile_pixel(epis_v_s_u_c: torch.Tensor, dmin: float, dmax: float,
         return sweep_pile(
             epis_v_s_u_c, dmin_v_u, dmax_v_u, dim_d, s_hat,
             dataclasses.replace(params, mean_shift_max_iter=iters),
-            with_k_best)
+            with_k_best, u_valid=u_valid)
 
     if C not in (1, 3):
         raise NotImplementedError("the CUDA sweep supports C in (1, 3)")
@@ -136,6 +141,7 @@ def sweep_pile_pixel(epis_v_s_u_c: torch.Tensor, dmin: float, dmax: float,
     if n_act == 0:
         return out
 
+    lo, hi = (0, U - 1) if u_valid is None else u_valid
     lib, fn, _ = _sweep_fn()
     a_coef = f32(chan_scale(C) / (params.kernel_h * params.kernel_h))
     p = cuda_build.ptr
@@ -143,7 +149,8 @@ def sweep_pile_pixel(epis_v_s_u_c: torch.Tensor, dmin: float, dmax: float,
              p(dmin_v_u if per_pixel else None),
              p(dmax_v_u if per_pixel else None), f32(dmin), f32(dmax),
              dim_d, int(s_hat), f32(params.slope_factor), a_coef, iters,
-             int(params.interpolation == "nearest"), p(out.best_score),
+             int(params.interpolation == "nearest"), int(lo), int(hi),
+             p(out.best_score),
              p(out.score_mean), p(out.best_depth), p(out.rbar),
              p(out.k_best), p(work_count), cuda_build.stream_ptr(dev))
     cuda_build.check(err, lib, "rslf_sweep_pixel_error_string",

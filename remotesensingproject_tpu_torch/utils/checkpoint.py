@@ -8,6 +8,11 @@ planes ``dmin`` / ``dmax`` at a bounds-edited level, the scalars
 ``dmin_scalar`` / ``dmax_scalar`` at a uniform one.  A directory written
 by either package resumes in the other.  The reference has no
 checkpointing (SURVEY §5).
+
+Under a mesh (``ShardedDepth2DComputer``) the format stays the same: to
+save, every rank gathers the planes, rank 0 writes, and the ranks meet at a
+barrier; to load, every rank reads the file and keeps its block.  Both are
+collectives: every rank calls them.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.depth2d import state_from_numpy
 
@@ -27,8 +33,8 @@ def _path(path_dir: str, level: int) -> str:
 
 def save_level(path_dir: str, level: int, computer) -> str:
     """Save one pyramid level's results (after ``computer.run()``)."""
-    os.makedirs(path_dir, exist_ok=True)
-    st = computer.state
+    mesh = getattr(computer, "mesh", None)
+    st = computer.state  # a sharded computer gathers here
     # uniform levels keep their bound planes unmade; store the scalars
     if computer._bounds_edited:
         bounds = dict(dmin=computer.dmin_s_v_u.cpu().numpy(),
@@ -37,16 +43,21 @@ def save_level(path_dir: str, level: int, computer) -> str:
         bounds = dict(dmin_scalar=np.float32(computer.dmin),
                       dmax_scalar=np.float32(computer.dmax))
     path = _path(path_dir, level)
-    np.savez_compressed(
-        path, **{name: getattr(st, name).cpu().numpy()
-                 for name in ("ce", "ce_mask", "disp_conf", "line_conf",
-                              "best_depth", "rbar", "claim")},
-        accept_all=np.asarray(computer.accept_all), **bounds)
+    if mesh is None or mesh.rank == 0:
+        os.makedirs(path_dir, exist_ok=True)
+        np.savez_compressed(
+            path, **{name: getattr(st, name).cpu().numpy()
+                     for name in ("ce", "ce_mask", "disp_conf", "line_conf",
+                                  "best_depth", "rbar", "claim")},
+            accept_all=np.asarray(computer.accept_all), **bounds)
+    if mesh is not None:
+        dist.barrier()
     return path
 
 
 def load_level(path_dir: str, level: int, computer) -> bool:
-    """Restore a saved level into ``computer``; False when there is none.
+    """Restore a saved level into ``computer`` (a sharded computer keeps
+    its block); False when there is none.
 
     Outside line mode ``line_conf`` is kept as ``(1, 1, 1)`` whatever
     shape the file holds.  A level saved with scalar bounds resets the
@@ -68,9 +79,7 @@ def load_level(path_dir: str, level: int, computer) -> bool:
     else:
         computer.dmin = float(arrays["dmin_scalar"])
         computer.dmax = float(arrays["dmax_scalar"])
-        computer._dmin_arr = None
-        computer._dmax_arr = None
-        computer._bounds_edited = False
+        computer.rebuild_bounds()
     computer.accept_all = bool(arrays["accept_all"])
     computer.passes_run = 0
     return True

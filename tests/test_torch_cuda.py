@@ -18,7 +18,10 @@ stages), images smaller than a tile or a window, eps <= 0 and an empty
 mask.  Line mode, fast mode and nearest interpolation: the pixel sweep's
 k_best and its fast cap, the nearest rule in the pixel and the tile sweep,
 the paint with one to three payloads, and whole runs in each mode against
-the CPU."""
+the CPU.  The (v, u) mesh's operands: the pixel and the tile sweep on a
+u-haloed block with its ``u_valid`` window, and the paint from haloed
+sources with ``u_origin``, each bitwise against its plain version and
+against the whole image's result at the block's pixels."""
 
 import numpy as np
 import pytest
@@ -685,3 +688,99 @@ def test_depth1d_on_card_at_c3_matches_cpu(dev):
                        ("disp_confidence", 2e-5), ("rbar", 2e-5)):
         torch.testing.assert_close(getattr(out, name).cpu(),
                                    getattr(ref, name), rtol=0, atol=atol)
+
+
+def _u_block(x, u0, width, halo, axis):
+    """Columns [u0 - halo, u0 + width + halo) of ``x`` along ``axis``, zeros
+    beyond the image: a rank's u-haloed block."""
+    U = x.shape[axis]
+    a, b = u0 - halo, u0 + width + halo
+    core = x.narrow(axis, max(a, 0), min(b, U) - max(a, 0))
+
+    def zeros(n):
+        shape = list(x.shape)
+        shape[axis] = n
+        return torch.zeros(shape, dtype=x.dtype, device=x.device)
+
+    return torch.cat([zeros(max(0, -a)), core, zeros(max(0, b - U))],
+                     axis).contiguous()
+
+
+@pytest.mark.parametrize("kind,C,per_pixel", [
+    ("pixel", 1, False), ("pixel", 3, True), ("pixel-nearest", 1, True),
+    ("tiles", 1, True), ("tiles", 4, True), ("tiles-nearest", 4, True)])
+@pytest.mark.parametrize("u0", [0, 40])
+def test_sweep_u_valid_bitwise(dev, kind, C, per_pixel, u0):
+    """A block of 40 columns haloed by hu with the image's window: the
+    kernel equals its plain version bitwise, and both equal the whole
+    image's sweep at the block's pixels (positions in the window's
+    columns)."""
+    params = NEAREST if kind.endswith("nearest") else DepthParams()
+    epis = _vol(C, S=12, V=16, U=80, seed=7).to(dev)
+    V, S, U, _ = epis.shape
+    Ul, D, s_hat = 40, 24, S // 2
+    hu = int(np.ceil((S - 1) * 1.5)) + 2
+    lo, hi, active = _ranges(V, U, dev, 700 + C + u0)
+    if not per_pixel:
+        lo, hi = (torch.full((V, U), b, device=dev) for b in (-1.0, 1.5))
+    core = torch.zeros((V, U), dtype=torch.bool, device=dev)
+    core[:, u0:u0 + Ul] = True
+    active = active & core
+    act_h, lo_h, hi_h = (_u_block(x, u0, Ul, hu, 1)
+                         for x in (active, lo, hi))
+    epis_h = _u_block(epis, u0, Ul, hu, 2)
+    window = (hu - u0, U - 1 - u0 + hu)
+    if kind.startswith("pixel"):
+        kw = dict(dmin_v_u=lo_h, dmax_v_u=hi_h) if per_pixel else {}
+        n0 = sweep_pile_pixel.launches
+        got = sweep_pile_pixel(epis_h, -1.0, 1.5, D, s_hat, params, act_h,
+                               u_valid=window, **kw)
+        assert sweep_pile_pixel.launches == n0 + 1
+    else:
+        n0 = sweep_pile_tiles.launches
+        got = sweep_pile_tiles(epis_h, lo_h, hi_h, D, s_hat, params,
+                               active_v_u=act_h, u_valid=window)
+        assert sweep_pile_tiles.launches == n0 + 1
+    want = sweep_pile(epis_h, lo_h, hi_h, D, s_hat, params, u_valid=window)
+    _same_sweep(got, want, act_h, False)
+    whole = sweep_pile(epis, lo, hi, D, s_hat, params)
+    for name in ("best_score", "score_mean", "best_depth", "rbar"):
+        assert torch.equal(getattr(got, name)[:, hu:hu + Ul][active[:, u0:u0 + Ul]],
+                           getattr(whole, name)[active]), name
+
+
+@pytest.mark.parametrize("C,n_payloads", [(1, 2), (4, 3)])
+@pytest.mark.parametrize("u0", [0, 24, 48])
+def test_paint_u_origin_bitwise(dev, C, n_payloads, u0):
+    """Targets of a 24-column block painted from sources haloed by pado
+    with u_origin = pado: the kernel equals the plain version bitwise, and
+    both equal the whole image's paint on the block."""
+    claim, frames, depth, rbar, sm, conf, tgts, slope = (
+        x.to(dev) if torch.is_tensor(x) else x
+        for x in _paint_scene(7, 5, 72, C, seed=40 + C))
+    tgts = [t.to(dev) for t in tgts] + [torch.rand(claim.shape).to(dev)]
+    S, V, U = claim.shape
+    Ul, s_hat = 24, 3
+    pado = int(np.ceil(4.0 * slope * (S - 1))) + 1
+    srcs = [depth, conf, depth * 0.5][:n_payloads]
+    whole_cl, whole_t = claim.clone(), [t.clone() for t in tgts]
+    propagate(whole_cl, frames, depth, rbar, sm, s_hat, slope, 0.1,
+              list(zip(whole_t, srcs)))
+
+    def run(fn):
+        cl = claim[:, :, u0:u0 + Ul].clone()
+        t = [x[:, :, u0:u0 + Ul].clone() for x in tgts[:n_payloads]]
+        h = [_u_block(x, u0, Ul, pado, 1) for x in [depth, rbar, sm] + srcs]
+        fn(cl, frames[:, :, u0:u0 + Ul].contiguous(), h[0], h[1], h[2],
+           s_hat, slope, 0.1, list(zip(t, h[3:])), u_origin=pado)
+        return cl, t
+
+    n0 = propagate_cuda.launches
+    cl_k, t_k = run(propagate_cuda)
+    assert propagate_cuda.launches == n0 + 1
+    cl_p, t_p = run(propagate)
+    assert torch.equal(cl_k, cl_p)
+    assert torch.equal(cl_k, whole_cl[:, :, u0:u0 + Ul])
+    for a, b, w in zip(t_k, t_p, whole_t):
+        assert torch.equal(a, b)
+        assert torch.equal(a, w[:, :, u0:u0 + Ul])

@@ -314,3 +314,38 @@ def test_io_matches_jax_package(tmp_path):
                                   jio.build_epis_from_imgs(want))
     with pytest.raises(FileNotFoundError):
         tio.read_imgs_from_folder(str(tmp_path / "f"), "tif")
+
+
+def test_default_reaches_the_kernel_wrappers_and_no_pallas_does_not(
+        monkeypatch):
+    """The default (``use_pallas=None``) routes every stage of a pass to the
+    kernel wrappers, which a CUDA tensor launches (above); ``use_pallas=
+    False`` is the caller's choice of the plain versions and reaches no
+    wrapper.  Spies stand in for the wrappers here, on the CPU."""
+    from remotesensingproject_tpu_torch.models import depth2d, pile
+
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(*a, **k):
+            calls.append(name)
+            return fn(*a, **k)
+        return wrapped
+
+    for mod, name in ((depth2d, "sweep_pile_pixel"),
+                      (depth2d, "selective_median_cuda"),
+                      (depth2d, "propagate_cuda"),
+                      (pile, "sweep_pile_rows"),
+                      (pile, "selective_median_cuda")):
+        monkeypatch.setattr(mod, name, spy(name, getattr(mod, name)))
+    vol, _ = oracle.make_synthetic_lf(S=4, V=12, U=24, C=1, seed=0)
+    Depth2DComputer(vol, -1.0, 1.5, 5, device="cpu").run()
+    Depth1DComputerPile(vol, -1.0, 1.5, 5, device="cpu").run()
+    assert set(calls) == {"sweep_pile_pixel", "selective_median_cuda",
+                          "propagate_cuda", "sweep_pile_rows"}
+    calls.clear()
+    Depth2DComputer(vol, -1.0, 1.5, 5, device="cpu", use_pallas=False).run()
+    Depth1DComputerPile(vol, -1.0, 1.5, 5, device="cpu",
+                        use_pallas=False).run()
+    FineToCoarse(vol, -1.0, 1.5, 5, device="cpu", use_pallas=False).run()
+    assert calls == []

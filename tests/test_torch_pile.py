@@ -91,10 +91,22 @@ def test_pile_and_depth2d_commands_on_cpu(tmp_path):
 @pytest.mark.parametrize("flag", [["--sharded"], ["--no-pallas"],
                                   ["--ckpt-dir", "ckpt", "--sharded"]])
 def test_commands_refuse_what_is_not_ported(tmp_path, flag):
-    """``--sharded`` and ``--no-pallas`` raise, also beside ``--ckpt-dir``
-    (which is ported: tests/test_torch_cli.py)."""
+    """``--sharded`` and ``--no-pallas`` are ported: ``pile`` takes them as
+    the JAX command does (``--sharded`` and ``--ckpt-dir`` are
+    fine-to-coarse's; ``--no-pallas`` runs the plain versions).  What is
+    not ported, the ``bench`` command, raises."""
+    vol, _ = oracle.make_synthetic_lf(S=4, V=12, U=24, C=1, seed=2)
+    u8 = _write_frames(vol, tmp_path / "frames")
+    cli.main(["pile", str(tmp_path / "frames"), "--ext", "png", "--dmin",
+              "-1", "--dmax", "1.5", "--dim-d", "5", "--out",
+              str(tmp_path / "out"), "--device", "cpu", *flag])
+    res = np.load(tmp_path / "out" / "pile_results.npz")
+    want = Depth1DComputerPile(u8, -1.0, 1.5, 5, device="cpu",
+                               use_pallas=False if "--no-pallas" in flag
+                               else None).run()
+    np.testing.assert_array_equal(res["best_depth"], want.best_depth.numpy())
     with pytest.raises(NotImplementedError):
-        cli.main(["pile", str(tmp_path), "--device", "cpu", *flag])
+        cli.main(["bench"])
 
 
 @pytest.mark.parametrize("command,flag", [
