@@ -87,13 +87,34 @@ Phases, one line each (details on further lines):
    ``fine-to-coarse --no-pallas`` on data/strips16 on the card: no kernel
    launched, the results on the card, the CLI's npz equal to the API's,
    and the gate of tests/test_sample_data.py on the fused map;
-15. a ``{"kernels": [...]}`` JSON line (the new modes of a kernel under
-   ``modes``, depth1d's sweeps and the mesh's operands among them), the
-   card line again, and last ``{"ok": true, "device": {...}}``.
+15. bench.py's scenes through the port's ``bench``: first the pixel sweep,
+   the median and the paint against their plain versions, bitwise, at the
+   first level-0 pass of the D240 (SkysatLR18 [240]: D=240), HR
+   (SkysatHR18: 100x1080x1920, d in [-2, 8]) and RGB (MansionLR:
+   100x720x1146, C=3 uint8, d in [0, 4]) scenes (the plain sweep, and at
+   HR the plain paint, on the first 64 rows), with the C=3 launch plan of
+   the pixel sweep beside the C=1 one; then ``bench.main`` on D240, HR and
+   RGB (one run each), on the LR scene with ``BENCH_SCORE=disp`` and on
+   the LR scene cold and warm: each record printed with its wall time, peak
+   memory, launches and levels, each gate passed, and the LR fused map
+   bitwise phase 3's;
+16. the native frame loader: whether g++, png.h, jpeglib.h and the
+   libraries are there; if so its build, the RGB scene's 100 frames
+   written as PNG and read back by it and by PIL (each byte-equal to the
+   scene, host seconds of each), and data/strips16 read by it equal to
+   PIL's; where they are not, the frames are read by PIL alone; then
+   ``fine-to-coarse`` through the CLI on the PNG folder, its fused map
+   bitwise phase 15's RGB run (with the loader there: read without
+   falling back to PIL);
+17. a ``{"kernels": [...]}`` JSON line (the new modes of a kernel under
+   ``modes``, depth1d's sweeps, the mesh's operands and phase 15's scenes
+   among them), the card line again, and last ``{"ok": true, "device":
+   {...}}``.
 
 Launch counts are set to 0 just before each main path (phases 3, 4, 5,
-7-11, 13's runs in each rank, 14) and read just after; each path fails if
-one of its kernels never launched (phase 14 if any launched).  Exits
+7-11, 13's runs in each rank, 14, 15's runs, 16's CLI run) and read just
+after; each path fails if one of its kernels never launched (phase 14 if
+any launched).  Exits
 non-zero, printing no result, without a CUDA device, without the package
 beside it, or when any phase (or any rank) fails.  Imports nothing of JAX.
 """
@@ -113,6 +134,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -137,6 +159,27 @@ BAND_GAINS = np.array([[1.00, 0.85, 0.70, 0.95], [0.60, 0.75, 0.90, 1.00],
                        [0.90, 1.00, 0.65, 0.55], [0.70, 0.60, 0.95, 0.80],
                        [0.85, 0.95, 0.80, 0.60], [0.55, 0.70, 0.60, 0.90]],
                       np.float32)
+
+
+def native_toolchain():
+    """What building the native loader needs, each True or False: g++,
+    png.h and jpeglib.h on its include path, and -lpng -ljpeg -lz
+    linking."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        return {"g++": False}
+
+    def ok(src, *flags):
+        r = subprocess.run([cxx, "-x", "c++", "-", *flags], input=src,
+                           capture_output=True, text=True, timeout=120)
+        return r.returncode == 0
+
+    return {"g++": True,
+            "png.h": ok("#include <png.h>\n", "-fsyntax-only"),
+            "jpeglib.h": ok("#include <cstdio>\n#include <jpeglib.h>\n",
+                            "-fsyntax-only"),
+            "links": ok("int main() { return 0; }\n", "-o", os.devnull,
+                        "-lpng", "-ljpeg", "-lz", "-lpthread")}
 
 
 def card_line() -> str:
@@ -464,6 +507,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     try:
+        from remotesensingproject_tpu_torch import bench
         from remotesensingproject_tpu_torch.cli import main as cli
         from remotesensingproject_tpu_torch.config import DEFAULT_PARAMS
         from remotesensingproject_tpu_torch.models.depth1d import (
@@ -474,6 +518,8 @@ def main() -> int:
             FineToCoarse
         from remotesensingproject_tpu_torch.models.pile import \
             Depth1DComputerPile
+        from remotesensingproject_tpu_torch.native import loader as \
+            native_loader
         from remotesensingproject_tpu_torch.ops import cuda_build
         from remotesensingproject_tpu_torch.ops.median import \
             selective_median
@@ -483,7 +529,8 @@ def main() -> int:
         from remotesensingproject_tpu_torch.ops.propagation import propagate
         from remotesensingproject_tpu_torch.ops.propagation_pallas import \
             propagate_cuda
-        from remotesensingproject_tpu_torch.ops.sweep import sweep_pile
+        from remotesensingproject_tpu_torch.ops.sweep import (SweepResult,
+                                                              sweep_pile)
         from remotesensingproject_tpu_torch.ops.sweep_pallas import (
             candidate_grid, sweep_pile_rows, sweep_rows_plain)
         from remotesensingproject_tpu_torch.ops import (sweep_pallas,
@@ -508,7 +555,7 @@ def main() -> int:
         from remotesensingproject_tpu_torch.utils.checkpoint import (
             load_level, save_level)
         from remotesensingproject_tpu_torch.utils.io import (
-            build_epis_from_imgs, read_imgs_from_folder)
+            build_epis_from_imgs, list_images, read_imgs_from_folder)
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -598,24 +645,33 @@ def main() -> int:
                             f"{flips} depth picks differ)")
         return err, flips, same
 
-    def check_kernel(tag, run, plain, mask, nbytes, Cs):
+    def check_kernel(tag, run, plain, mask, nbytes, Cs, plain_rows=None):
         """A sweep kernel against its plain version, bitwise at mask;
-        ``run(work_count)`` launches it.  Returns (record, its result)."""
+        ``run(work_count)`` launches it.  With ``plain_rows``, ``plain()``
+        sweeps only the first rows, against the kernel's on all rows.
+        Returns (record, its result)."""
         work = torch.zeros(1, dtype=torch.int64, device=dev)
         got = run(work)
         torch.cuda.synchronize()
         out = {}
         t_plain = time_ms(torch, lambda: out.setdefault("want", plain()),
                           reps=1)
-        err, flips, same = check_same(tag, got, out.pop("want"), mask)
+        rows = slice(plain_rows)
+        err, flips, same = check_same(
+            tag, SweepResult(*(None if x is None else x[rows] for x in got)),
+            out.pop("want"), mask[rows])
         ms = time_ms(torch, lambda: run(None))
         bms, by = bound(nbytes, int(work) * flops_per_sample_step(Cs))
         print(f"  {tag}: bitwise {same}, max_abs_err {err:.3g}, {flips} "
               f"depth picks differ, {int(mask.sum())} px, kernel {ms:.3f} "
-              f"ms, plain {t_plain:.1f} ms, bound {bms:.3f} ms by {by}, "
-              f"{int(work)} sample-steps")
-        return dict(max_abs_err=err, ms=ms, plain_ms=t_plain, bound_ms=bms,
-                    bound_by=by), got
+              f"ms, plain {t_plain:.1f} ms"
+              f"{'' if plain_rows is None else f' on {plain_rows} rows'}, "
+              f"bound {bms:.3f} ms by {by}, {int(work)} sample-steps")
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=t_plain, bound_ms=bms,
+                   bound_by=by)
+        if plain_rows is not None:
+            rec["plain_rows"] = plain_rows
+        return rec, got
 
     def check_pixel(tag, ep, act, lo, hi, per_pixel, p=params, plain_p=None,
                     with_k=False):
@@ -771,28 +827,38 @@ def main() -> int:
     claim0[s_hat] = active
 
     def check_paint(tag, claim, fr, src, rb, m, cf, lc=None, u_origin=0,
-                    **launch):
+                    plain_rows=None, **launch):
         """The paint with the payloads (depth, disp_conf) and, given
         ``lc``, line mode's third (line_conf); sources wider than the
-        targets from column ``u_origin`` (the (v, u) mesh's halo).
+        targets from column ``u_origin`` (the (v, u) mesh's halo).  With
+        ``plain_rows`` the plain version paints only the first rows (each
+        row is painted on its own), against the kernel's on all rows.
         Returns (record, the kernel's claim and targets)."""
         Sp, Vp, Up, Cp = fr.shape
         srcs = [src, cf] + ([] if lc is None else [lc])
+        n_rows = Vp if plain_rows is None else plain_rows
+        head = lambda x, axis: x.narrow(axis, 0, n_rows).contiguous()
 
-        def fresh():
-            return (claim.clone(), *(torch.zeros((Sp, Vp, Up), device=dev)
-                                     for _ in srcs))
+        def fresh(rows=Vp):
+            return (claim.narrow(1, 0, rows).clone(),
+                    *(torch.zeros((Sp, rows, Up), device=dev) for _ in srcs))
 
         def paint(fn, cl, *tgts, **kw):
+            if cl.shape[1] < Vp:  # the plain version on the first rows
+                return fn(cl, head(fr, 1), head(src, 0), head(rb, 0),
+                          head(m, 0), s_hat, params.slope_factor,
+                          params.propagation_epsilon,
+                          list(zip(tgts, [head(x, 0) for x in srcs])),
+                          u_origin=u_origin, **kw)
             return fn(cl, fr, src, rb, m, s_hat, params.slope_factor,
                       params.propagation_epsilon, list(zip(tgts, srcs)),
                       u_origin=u_origin, **kw)
 
         got = fresh()
         paint(propagate_cuda, *got, **launch)
-        want = fresh()
+        want = fresh(n_rows)
         plain_ms = time_ms(torch, lambda: paint(propagate, *want), reps=1)
-        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        same = all(torch.equal(head(a, 1), b) for a, b in zip(got, want))
         if not same:
             failures.append(f"paint {tag} not bitwise equal")
         painted = int((claim & ~got[0]).sum())
@@ -818,17 +884,21 @@ def main() -> int:
         nbytes = Vp * src.shape[1] * (1 + 4 + 4 * Cp + 4 * P) + n_reach \
             + n_reach_open * 4 * Cp + painted * (1 + 4 * P)
         bms, by = bound(nbytes, n_reach * 3 + n_reach_open * (3 * Cp + 1))
-        err = max(float((a.float() - b.float()).abs().max())
+        err = max(float((head(a, 1).float() - b.float()).abs().max())
                   for a, b in zip(got, want))
         print(f"  paint {tag}: bitwise {same}, {P} payloads, "
               f"{int(m.sum())} sources, "
               f"{n_open} open targets, {n_reach} (frame, source) pairs in "
               f"the row, {n_reach_open} at an open target, {painted} "
               f"targets painted, "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+              f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms"
+              f"{'' if plain_rows is None else f' on {n_rows} rows'}, bound "
               f"{bms:.4f} ms by {by}")
-        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                    bound_by=by), got
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                   bound_by=by)
+        if plain_rows is not None:
+            rec["plain_rows"] = n_rows
+        return rec, got
 
     records["paint"], _ = check_paint("C=1", claim0, frames, filtered, rbar,
                                       mask, conf)
@@ -1483,6 +1553,205 @@ def main() -> int:
                         f"CLI npz equal {same_cli}")
     if failures:
         print("phase 14 FAILED: " + "; ".join(failures))
+        return 1
+
+    # ---- phase 15: bench.py's scenes through the port's bench ----
+    zero = torch.zeros((), device=dev)
+    # (scene, its variable, rows of the plain sweep and of the plain paint:
+    # a 64-row slab where the whole plain version would take over ~10 s)
+    scenes15 = (("D240", {"BENCH_D240": "1"}, None, None),
+                ("HR", {"BENCH_HR": "1"}, 64, 64),
+                ("RGB", {"BENCH_RGB": "1"}, 64, None))
+    for tag, env, sweep_rows, paint_rows in scenes15:
+        cfg = bench.bench_config(env)
+        if cfg.rgb:
+            vol_, _ = bench.synthetic_sequence_rgb(cfg.S, cfg.V, cfg.U,
+                                                   device=dev)
+        else:
+            vol_, _ = bench.synthetic_sequence(cfg.S, cfg.V, cfg.U,
+                                               dmin=cfg.dmin, dmax=cfg.dmax,
+                                               device=dev)
+        comp = Depth2DComputer(vol_, cfg.dmin, cfg.dmax, cfg.D,
+                               params=params, device=dev)
+        del vol_
+        ep = comp.epis
+        fr = ep.permute(1, 0, 2, 3).contiguous()
+        st = comp.initial_state()
+        act = (st.ce_mask[s_hat] & st.claim[s_hat]).contiguous()
+        Vs, _, Us, Cs = ep.shape
+        print(f"phase 15 inputs {tag}: level 0 {tuple(ep.shape)} (input "
+              f"{'uint8' if cfg.rgb else 'float32'}), D={cfg.D}, d in "
+              f"[{cfg.dmin}, {cfg.dmax}], s_hat={s_hat}, {int(act.sum())} "
+              f"active px")
+        n_sw = Vs if sweep_rows is None else sweep_rows
+        lo_r, hi_r = (torch.full((n_sw, Us), f32(b), device=dev)
+                      for b in (cfg.dmin, cfg.dmax))
+        at = f"{tag} first level-0 pass C={Cs}"
+        rec_s, res_ = check_kernel(
+            f"sweep_pixel {at}",
+            lambda w: sweep_pile_pixel(ep, cfg.dmin, cfg.dmax, cfg.D, s_hat,
+                                       params, act, work_count=w),
+            lambda: sweep_pile(ep[:n_sw].contiguous(), lo_r, hi_r, cfg.D,
+                               s_hat, params),
+            act, (ep.numel() + int(act.sum()) + Vs * Us * (3 + Cs)) * 4, Cs,
+            plain_rows=sweep_rows)
+        good = act & (res_.best_score > params.raw_score_threshold)
+        depth_ = torch.where(good, res_.best_depth, zero).contiguous()
+        mask_ = (st.ce_mask[s_hat] & ~(act & ~good)).contiguous()
+        rec_m, filt = check_median(at, depth_, fr[s_hat], mask_)
+        conf_ = torch.where(good, st.ce[s_hat] * torch.abs(
+            res_.best_score - res_.score_mean), zero).contiguous()
+        rbar_ = torch.where(good[..., None], res_.rbar, zero).contiguous()
+        claim_ = st.claim.clone()
+        claim_[s_hat] = act
+        del res_, comp, st
+        rec_p, _ = check_paint(at, claim_, fr, filt, rbar_, mask_, conf_,
+                               plain_rows=paint_rows)
+        for k, rec in (("sweep_pixel", rec_s), ("median", rec_m),
+                       ("paint", rec_p)):
+            modes.setdefault(k, {})[f"{tag} first level-0 pass"] = rec
+        del ep, fr, act, depth_, mask_, filt, conf_, rbar_, claim_
+        torch.cuda.empty_cache()
+    print(f"  launch plan sweep_pixel S={S} C=3: "
+          f"{sweep_pallas_pixel.launch_plan(S, 3)} (C=1: "
+          f"{sweep_pallas_pixel.launch_plan(S, 1)})")
+    if failures:
+        print("phase 15 FAILED: " + "; ".join(failures))
+        return 1
+
+    # the bench command's runs: three scenes cold, disp, the LR scene cold
+    # and warm
+    runs15 = (("D240", {"BENCH_D240": "1", "BENCH_COLD_ONLY": "1"}),
+              ("HR", {"BENCH_HR": "1", "BENCH_COLD_ONLY": "1"}),
+              ("RGB", {"BENCH_RGB": "1", "BENCH_COLD_ONLY": "1"}),
+              ("LR disp", {"BENCH_SCORE": "disp"}),
+              ("LR", {}))
+    bench15 = {}
+    for tag, env in runs15:
+        cfg = bench.bench_config(env)
+        printed = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(printed):
+                r, wall_, launches_ = run_path(
+                    f"phase 15 {tag}", ("sweep_pixel", "median", "paint"),
+                    lambda: bench.main(env))
+        except SystemExit as e:
+            failures.append(f"phase 15 {tag}: bench exited {e.code}: "
+                            f"{printed.getvalue().strip()}")
+            break
+        peak_ = torch.cuda.max_memory_allocated() / 2**30
+        rec = r.record
+        finite_ = (tuple(r.fused.shape) == (cfg.S, cfg.V, cfg.U)
+                   and bool(torch.isfinite(r.fused).all()))
+        variables = " ".join(f"{k}={v}" for k, v in env.items())
+        runs = "one run" if "BENCH_COLD_ONLY" in env else "cold and warm"
+        print(f"phase 15 bench {tag} ({variables or 'no variable'}): "
+              f"{wall_:.2f}s wall for bench.main (scene, {runs}, gate), "
+              f"{r.levels} levels, launches {launches_}, peak "
+              f"{peak_:.2f} GiB; finite {finite_}; record {json.dumps(rec)}")
+        if not (rec["quality_ok"] and rec["cold_ok"] and finite_):
+            failures.append(f"phase 15 {tag}: quality_ok "
+                            f"{rec['quality_ok']}, cold_ok {rec['cold_ok']}, "
+                            f"finite {finite_}")
+        bench15[tag] = (digest(r.fused), launches_)
+        del r
+        torch.cuda.empty_cache()
+    if "LR" in bench15:
+        same = bench15["LR"][0] == ref3["fused"]
+        print(f"phase 15 bench LR: the warm run's fused map bitwise phase "
+              f"3's {same}")
+        if not same:
+            failures.append("phase 15 LR: not phase 3's fused map")
+    if failures:
+        print("phase 15 FAILED: " + "; ".join(failures))
+        return 1
+    for tag, *_ in scenes15:
+        for k in ("sweep_pixel", "median", "paint"):
+            modes[k][f"{tag} first level-0 pass"]["launches"] = \
+                bench15[tag][1][k]
+
+    # ---- phase 16: the native frame loader ----
+    from PIL import Image
+
+    tools = native_toolchain()
+    have = all(tools.values())
+    print("phase 16 toolchain: " + ", ".join(f"{k} {v}" for k, v in
+                                             tools.items())
+          + ("" if have else "; the native loader cannot be built on this "
+             "machine: the frames are read with PIL (its loud fallback)"))
+    if have:
+        t0 = time.perf_counter()
+        try:
+            native_loader.build()
+        except RuntimeError as e:
+            failures.append(f"phase 16: the loader did not build: {e}")
+        print(f"phase 16 build: {time.perf_counter() - t0:.2f}s, "
+              f"{native_loader.library_path().name}")
+    cfg = bench.bench_config({"BENCH_RGB": "1"})
+    vol_, _ = bench.synthetic_sequence_rgb(cfg.S, cfg.V, cfg.U, device=dev)
+    scene_u8 = vol_.permute(1, 0, 2, 3).contiguous().cpu().numpy()
+    del vol_
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_frames_") as tmp:
+        png_dir = os.path.join(tmp, "frames")
+        os.makedirs(png_dir)
+        t0 = time.perf_counter()
+        for s_ in range(cfg.S):
+            Image.fromarray(scene_u8[s_]).save(
+                os.path.join(png_dir, f"frame_{s_:03d}.png"), compress_level=1)
+        print(f"phase 16 wrote the RGB scene's {cfg.S} frames "
+              f"{cfg.V}x{cfg.U}x3 as PNG in {time.perf_counter() - t0:.2f}s")
+        names = list_images(png_dir, "png")
+        readers = [("PIL", lambda: read_imgs_from_folder(
+            png_dir, "png", use_native=False))]
+        if have:
+            readers.insert(0, ("native", lambda: native_loader.read_stack(
+                png_dir, names, "png")))
+        for k, read in readers:
+            t0 = time.perf_counter()
+            a = read()
+            sec = time.perf_counter() - t0
+            ok = (a is not None and a.dtype == np.uint8
+                  and np.array_equal(a, scene_u8))
+            print(f"phase 16 read {k}: {sec:.3f}s host, byte-equal to the "
+                  f"scene {ok}")
+            if not ok:
+                failures.append(f"phase 16: the {k} read is not the scene")
+            del a
+        if have:
+            with warnings.catch_warnings():
+                warnings.simplefilter("error", RuntimeWarning)
+                a16 = read_imgs_from_folder(data, "png")
+            ok16 = np.array_equal(a16, read_imgs_from_folder(
+                data, "png", use_native=False))
+            print(f"phase 16 strips16: native read equal to PIL's {ok16}")
+            if not ok16:
+                failures.append("phase 16: strips16 native read is not PIL's")
+        out_dir = os.path.join(tmp, "out")
+        log = io.StringIO()
+        with warnings.catch_warnings(record=True) as warned, \
+                contextlib.redirect_stdout(log):
+            warnings.simplefilter("always")
+            _, wall_, launches_ = run_path(
+                "phase 16 CLI", ("sweep_pixel", "median", "paint"),
+                lambda: cli.main(["fine-to-coarse", png_dir, "--ext", "png",
+                                  "--dmin", str(cfg.dmin), "--dmax",
+                                  str(cfg.dmax), "--dim-d", str(cfg.D),
+                                  "--out", out_dir]))
+        fell_back = any("falling back" in str(w.message) for w in warned)
+        z = np.load(os.path.join(out_dir, "fine_to_coarse_results.npz"))
+        same = digest(torch.from_numpy(z["fused"])) == bench15["RGB"][0]
+        print(f"phase 16 CLI fine-to-coarse on the PNG frames: {wall_:.2f}s "
+              f"wall (frames read by "
+              f"{'PIL, the fallback' if fell_back else 'the native loader'}"
+              f"), launches {launches_}; fused bitwise phase 15's RGB run "
+              f"{same}")
+        if have and fell_back:
+            failures.append("phase 16: the CLI fell back to PIL")
+        if not same:
+            failures.append("phase 16: the CLI's fused map is not phase 15's")
+    del scene_u8
+    if failures:
+        print("phase 16 FAILED: " + "; ".join(failures))
         return 1
 
     meta = {

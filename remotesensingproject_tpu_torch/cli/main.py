@@ -11,6 +11,9 @@ commands and arguments, headless (windows become written PNGs):
   depth2d         full 2-D propagation: disparity_XXX.png
   fine-to-coarse  the pyramid pipeline: depth_map_XXX.png
   info            versions and the CUDA device
+  bench           the benchmark (``remotesensingproject_tpu_torch.bench``:
+                  bench.py's scenes and gates, chosen by its BENCH_*
+                  environment variables; one JSON line)
 
 Each depth command also writes its arrays to ``<command>_results.npz``
 and runs on CUDA unless ``--device`` names another device.  ``--score``
@@ -22,8 +25,7 @@ path); ``--sharded`` runs ``fine-to-coarse`` over a process group: the
 ranks of ``torchrun`` (``torchrun --nproc-per-node N -m
 remotesensingproject_tpu_torch.cli.main fine-to-coarse --sharded ...``),
 else one rank per visible card (one rank on ``--device``'s device when
-it is given); rank 0 writes the results.  Not ported: the ``bench``
-command, which raises NotImplementedError.
+it is given); rank 0 writes the results.
 """
 
 from __future__ import annotations
@@ -32,8 +34,6 @@ import argparse
 import dataclasses
 import sys
 import time
-
-NOT_PORTED = "Not ported yet (ROADMAP.md): the bench command."
 
 
 def _add_io_args(p):
@@ -285,12 +285,13 @@ def cmd_info(args):
 
 
 def cmd_bench(args):
-    raise NotImplementedError("the bench command is not ported yet")
+    from .. import bench
+
+    bench.main()
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(prog="remotesensingproject_tpu_torch",
-                                 epilog=NOT_PORTED)
+    ap = argparse.ArgumentParser(prog="remotesensingproject_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("read-img")
@@ -320,7 +321,9 @@ def main(argv=None):
 
     p = sub.add_parser("info")
     p.set_defaults(fn=cmd_info)
-    p = sub.add_parser("bench", help=NOT_PORTED)
+    p = sub.add_parser("bench", help="bench.py's scenes and gates on the "
+                       "card (BENCH_HR, BENCH_D240, BENCH_RGB, BENCH_SCORE, "
+                       "...); one JSON line")
     p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)

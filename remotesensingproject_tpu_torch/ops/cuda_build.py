@@ -60,6 +60,16 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"librslf_{name}-{h.hexdigest()[:16]}.so"
 
 
+def set_build_dir(path) -> None:
+    """Build and load the kernels under ``path`` from now on; the
+    libraries loaded so far are dropped, so the next launch of each kernel
+    builds it there (``BENCH_NO_CACHE=1`` of the bench)."""
+    global BUILD_DIR
+    with _lock:
+        BUILD_DIR = Path(path)
+        _libs.clear()
+
+
 def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     """Build the named kernels that are not built yet, one ``nvcc``
     process each, all started together.  Returns seconds per kernel

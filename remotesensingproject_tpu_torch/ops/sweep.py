@@ -199,3 +199,24 @@ def sweep_pile(epis_v_s_u_c: torch.Tensor, dmin_v_u: torch.Tensor,
     return SweepResult(best_score=best_score,
                        score_mean=div(score_sum, float(dim_d)),
                        best_depth=best_depth, rbar=rbar_b, k_best=k_b)
+
+
+def sweep_epi(epi_s_u_c: torch.Tensor, dmin_u, dmax_u, dim_d: int,
+              s_hat: int, params: DepthParams, with_k_best: bool = False,
+              u_valid: Optional[Tuple[int, int]] = None):
+    """Dense sweep of one EPI ``[S, U, C]``: all u, all d, on the EPI's
+    device (the V = 1 case of :func:`sweep_pile`).
+
+    ``dmin_u`` / ``dmax_u`` are ``[U]`` per-pixel grid bounds or scalars.
+    Returns (best_score [U], score_mean [U], best_depth [U], rbar [U, C],
+    k_best [S, U]; zeros without ``with_k_best``), as the JAX package's
+    ``sweep_epi``.
+    """
+    U = epi_s_u_c.shape[1]
+    bounds = [torch.broadcast_to(torch.as_tensor(
+        b, dtype=DTYPE, device=epi_s_u_c.device), (U,))[None]
+        for b in (dmin_u, dmax_u)]
+    r = sweep_pile(epi_s_u_c[None], *bounds, dim_d, s_hat, params,
+                   with_k_best, u_valid=u_valid)
+    return (r.best_score[0], r.score_mean[0], r.best_depth[0], r.rbar[0],
+            r.k_best[0])

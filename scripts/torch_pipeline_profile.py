@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch/CUDA port's pipeline goes, on one GPU.
 
-    python3 scripts/torch_pipeline_profile.py [--bands 4] [--score line]
-        [--fast] [--interpolation nearest]
+    python3 scripts/torch_pipeline_profile.py [--bands 4]
+        [--scene lr|d240|hr|rgb] [--score line] [--fast]
+        [--interpolation nearest]
 
 Runs the fine-to-coarse pipeline on the bench scene of ``chip_smoke.py``
-(``--bands 4``: its four-band version, phase 5 there; ``--score``,
-``--fast`` and ``--interpolation`` set those parameters) once to warm up,
+(``--bands 4``: its four-band version, phase 5 there; ``--scene``: one of
+the bench command's scenes, ``remotesensingproject_tpu_torch.bench``:
+SkysatLR18 [120] (the bench scene), [240], SkysatHR18 or MansionLR RGB;
+``--score``, ``--fast`` and ``--interpolation`` set those parameters)
+once to warm up,
 then once under ``torch.profiler``.  Prints one JSON line: the profiled
 wall time, the device time summed per CUDA kernel (the port's kernels by
 name, PyTorch's own kernels grouped), the device busy share (summed
@@ -30,6 +34,7 @@ import torch  # noqa: E402
 
 from chip_smoke import (BAND_GAINS, DMAX, DMIN, D, card_line,  # noqa
                         synthetic_sequence)
+from remotesensingproject_tpu_torch import bench  # noqa: E402
 from remotesensingproject_tpu_torch.config import DEFAULT_PARAMS  # noqa
 from remotesensingproject_tpu_torch.models.fine_to_coarse import \
     FineToCoarse  # noqa: E402
@@ -44,8 +49,13 @@ PORTS = {"PcRuleRow": "sweep_rows", "sweep_pc_kernel": None,
          "selective_median_kernel": "median", "paint_kernel": "paint"}
 
 
-def run(vol, params):
-    ftc = FineToCoarse(vol, DMIN, DMAX, D, params=params, device="cuda")
+#: the bench command's variable of each scene
+SCENES = {"lr": {}, "d240": {"BENCH_D240": "1"}, "hr": {"BENCH_HR": "1"},
+          "rgb": {"BENCH_RGB": "1"}}
+
+
+def run(vol, params, grid=(DMIN, DMAX, D)):
+    ftc = FineToCoarse(vol, *grid, params=params, device="cuda")
     ftc.run()
     out = ftc.get_results()
     torch.cuda.synchronize()
@@ -55,6 +65,7 @@ def run(vol, params):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--bands", type=int, choices=(1, 4), default=1)
+    ap.add_argument("--scene", choices=tuple(SCENES), default="lr")
     ap.add_argument("--score", choices=("edge", "disp", "line"),
                     default="edge")
     ap.add_argument("--fast", action="store_true")
@@ -67,17 +78,31 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
+    if args.bands == 4 and args.scene != "lr":
+        ap.error("--bands 4 is the four-band version of the lr scene")
     PORTS["sweep_pc_kernel"] = ("sweep_pixel" if args.bands == 1
                                 else "sweep_tiles")
     cuda_build.build()
-    vol, _ = synthetic_sequence(torch, torch.device("cuda"),
-                                gains=BAND_GAINS if args.bands == 4 else None)
-    run(vol, params)  # warm-up: allocator, library loads
+    grid = (DMIN, DMAX, D)
+    if args.bands == 4:
+        vol, _ = synthetic_sequence(torch, torch.device("cuda"),
+                                    gains=BAND_GAINS)
+    else:
+        cfg = bench.bench_config(SCENES[args.scene])
+        if cfg.rgb:
+            vol, _ = bench.synthetic_sequence_rgb(cfg.S, cfg.V, cfg.U,
+                                                  device="cuda")
+        else:
+            vol, _ = bench.synthetic_sequence(cfg.S, cfg.V, cfg.U,
+                                              dmin=cfg.dmin, dmax=cfg.dmax,
+                                              device="cuda")
+        grid = (cfg.dmin, cfg.dmax, cfg.D)
+    run(vol, params, grid)  # warm-up: allocator, library loads
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        ftc, _ = run(vol, params)
+        ftc, _ = run(vol, params, grid)
         wall = time.perf_counter() - t0
     by_kernel = {}
     other = {}
@@ -96,6 +121,8 @@ def main() -> int:
     print(json.dumps({
         "card": card_line(),
         "bands": args.bands,
+        "scene": args.scene,
+        "shape": list(vol.shape),
         "params": {"score_version": args.score, "fast": args.fast,
                    "interpolation": args.interpolation},
         "wall_s": wall,

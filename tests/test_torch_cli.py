@@ -1,5 +1,6 @@
 """The port's CLI on the CPU (``--device cpu``) on a tiny PNG folder: every
-command of the JAX package's CLI but ``bench``.  ``read-img``, ``build-epi``
+command of the JAX package's CLI (``bench`` runs the port's bench, which
+tests/test_torch_bench.py holds).  ``read-img``, ``build-epi``
 and ``gallery`` write the JAX commands' images; the depth commands write
 the PNGs of the JAX commands (their pixels equal the getters' renders) and
 their npz; ``--score`` and ``--fast`` reach ``depth1d`` (the JAX command
@@ -180,12 +181,19 @@ def test_info_imports_no_jax():
     assert lines[2].startswith("cuda available: ")
 
 
-def test_bench_and_help_say_what_is_not_ported(capsys):
-    with pytest.raises(NotImplementedError, match="bench"):
-        cli.main(["bench"])
+def test_bench_and_help_say_what_is_not_ported(capsys, monkeypatch):
+    """Everything is ported: ``bench`` runs the port's ``bench.main`` (as
+    the JAX command runs bench.py's), and the help names nothing as not
+    ported."""
+    from remotesensingproject_tpu_torch import bench
+
+    calls = []
+    monkeypatch.setattr(bench, "main", lambda: calls.append(1))
+    assert cli.main(["bench"]) is None
+    assert calls == [1]
     with pytest.raises(SystemExit):
         cli.main(["--help"])
     text = " ".join(capsys.readouterr().out.split())
-    # --sharded and --no-pallas are ported: the bench command is all
-    assert "Not ported yet (ROADMAP.md): the bench command." in text
+    assert "bench" in text
+    assert "not ported" not in text.lower()
     assert "--sharded" not in text and "--no-pallas" not in text

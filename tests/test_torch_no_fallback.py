@@ -10,6 +10,7 @@ import pytest
 import torch
 
 import oracle
+from remotesensingproject_tpu_torch import bench
 from remotesensingproject_tpu_torch.cli import main as cli
 from remotesensingproject_tpu_torch.config import DepthParams
 from remotesensingproject_tpu_torch.models.depth2d import Depth2DComputer
@@ -24,14 +25,18 @@ from remotesensingproject_tpu_torch.types import resolve_device
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / \
     "remotesensingproject_tpu_torch"
+# the JAX package, JAX, and the repository's bench.py (whose scenes import
+# jax.numpy): the port keeps its own copies
 FORBIDDEN = re.compile(
-    r"^\s*(import|from)\s+(jax|jaxlib|remotesensingproject_tpu)(\.|\s|$)",
-    re.M)
+    r"^\s*(import|from)\s+(jax|jaxlib|remotesensingproject_tpu|bench)"
+    r"(\.|\s|$)", re.M)
 
 
 def test_sources_import_no_jax_and_no_jax_package():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) >= 18
+    assert PKG / "bench.py" in files
+    assert PKG / "native" / "loader.py" in files
     for f in files:
         assert not FORBIDDEN.search(f.read_text()), f
 
@@ -42,7 +47,7 @@ def test_importing_every_module_loads_no_jax():
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'remotesensingproject_tpu')]\n"
+            "('jax', 'jaxlib', 'remotesensingproject_tpu', 'bench')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True,
                    cwd=PKG.parent, timeout=120)
@@ -61,6 +66,8 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         Depth2DComputer(vol, -1.0, 1.5, 5)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FineToCoarse(vol, -1.0, 1.5, 5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.main({"BENCH_SMALL": "1"})
     _write_frames(vol, tmp_path / "frames")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["fine-to-coarse", str(tmp_path / "frames"), "--ext",

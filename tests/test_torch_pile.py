@@ -90,11 +90,12 @@ def test_pile_and_depth2d_commands_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--sharded"], ["--no-pallas"],
                                   ["--ckpt-dir", "ckpt", "--sharded"]])
-def test_commands_refuse_what_is_not_ported(tmp_path, flag):
+def test_commands_refuse_what_is_not_ported(tmp_path, flag, monkeypatch):
     """``--sharded`` and ``--no-pallas`` are ported: ``pile`` takes them as
     the JAX command does (``--sharded`` and ``--ckpt-dir`` are
-    fine-to-coarse's; ``--no-pallas`` runs the plain versions).  What is
-    not ported, the ``bench`` command, raises."""
+    fine-to-coarse's; ``--no-pallas`` runs the plain versions).  Nothing
+    is left unported: the ``bench`` command runs the port's bench, which
+    without a card refuses to start, as every entry point does."""
     vol, _ = oracle.make_synthetic_lf(S=4, V=12, U=24, C=1, seed=2)
     u8 = _write_frames(vol, tmp_path / "frames")
     cli.main(["pile", str(tmp_path / "frames"), "--ext", "png", "--dmin",
@@ -105,7 +106,8 @@ def test_commands_refuse_what_is_not_ported(tmp_path, flag):
                                use_pallas=False if "--no-pallas" in flag
                                else None).run()
     np.testing.assert_array_equal(res["best_depth"], want.best_depth.numpy())
-    with pytest.raises(NotImplementedError):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["bench"])
 
 
