@@ -11,11 +11,16 @@ Phases, one line each (details on further lines):
    SIZE = 5 instantiations must have neither stack frame nor spills), the
    median's instructions (``cuobjdump -sass``, where the toolkit has it),
    and the block size, shared memory and resident blocks the launchers of
-   the pixel, tile and row sweeps and the tiles the median's chose;
-2. each kernel against its plain PyTorch version on the card, at the
+   the tile and row sweeps and the tiles the median's chose;
+2. the plan of every pixel-sweep instantiation of the passes (C=1 and 3,
+   linear and nearest, with and without k_best: threads, blocks an SM,
+   shared bytes a block, resident warps an SM); each kernel against its
+   plain PyTorch version on the card, at the
    inputs of the first level-0 pass of the bench scene (SkysatLR18 [120]:
    S=100, V=540, U=960, D=120, d in [-1, 4]), plus per-pixel bounds and
-   a C=3 slab for the pixel sweep, and its new modes there: k_best (line
+   a C=3 slab (64 rows, S=100) for the pixel sweep under the linear rule
+   with per-pixel and uniform bounds, the nearest rule, a ``u_valid``
+   window under both rules and k_best, and its new modes there: k_best (line
    mode's input), the fast cap (against the plain sweep with 5 mean-shift
    steps), the nearest rule with uniform and per-pixel bounds; the tile
    sweep's nearest rule at C=4 on a 64-row slab; the row sweep at the
@@ -596,10 +601,6 @@ def main() -> int:
     for size_, C_ in ((5, 1), (5, 4), (7, 1), (4, 1), (17, 64), (5, 400)):
         print(f"  launch plan median size={size_} C={C_}: "
               f"{median_pallas.launch_plan(size_, C_)}")
-    for with_k, nearest in ((False, False), (True, False), (False, True)):
-        print(f"  launch plan sweep_pixel S={S} C=1 k_best={with_k} "
-              f"nearest={nearest}: "
-              f"{sweep_pallas_pixel.launch_plan(S, 1, with_k, nearest)}")
     print(f"  launch plan sweep_tiles S={S} C=4: "
           f"{sweep_pallas_perpixel.launch_plan(S, 4)}")
     print(f"  launch plan sweep_tiles S={S} C=4 nearest pixel mode: "
@@ -625,6 +626,17 @@ def main() -> int:
     active = (state.ce_mask[s_hat] & state.claim[s_hat]).contiguous()
     n_act = int(active.sum())
     print(f"phase 2 inputs: level 0, s_hat={s_hat}, {n_act} active px")
+    # every instantiation of the pixel sweep on the passes: its block,
+    # blocks and shared bytes a block, and the warps an SM holds
+    for Cp in (1, 3):
+        for with_k in (False, True):
+            for nearest in (False, True):
+                pl = sweep_pallas_pixel.launch_plan(S, Cp, with_k, nearest)
+                print(f"  launch plan sweep_pixel S={S} C={Cp} k_best="
+                      f"{with_k} nearest={nearest}: {pl['threads']} threads, "
+                      f"{pl['blocks_per_sm']} blocks an SM, "
+                      f"{pl['smem_bytes']} shared bytes a block, "
+                      f"{pl['resident_warps']} resident warps an SM")
     records = {}
 
     def check_same(tag, got, want, mask):
@@ -674,9 +686,10 @@ def main() -> int:
         return rec, got
 
     def check_pixel(tag, ep, act, lo, hi, per_pixel, p=params, plain_p=None,
-                    with_k=False):
+                    with_k=False, window=None):
         """The pixel sweep under params ``p`` against the plain sweep under
-        ``plain_p`` (default ``p``)."""
+        ``plain_p`` (default ``p``), in the ``u_valid`` window ``window``
+        where one is given."""
         Vs, Ss, Us, Cs = ep.shape
         kw = dict(dmin_v_u=lo, dmax_v_u=hi) if per_pixel else {}
         nbytes = (ep.numel() + int(act.sum()) + Vs * Us * (3 + Cs)
@@ -686,8 +699,9 @@ def main() -> int:
             f"sweep_pixel {tag}",
             lambda w: sweep_pile_pixel(ep, DMIN, DMAX, D, s_hat, p, act,
                                        with_k_best=with_k, work_count=w,
-                                       **kw),
-            lambda: sweep_pile(ep, lo, hi, D, s_hat, plain_p or p, with_k),
+                                       u_valid=window, **kw),
+            lambda: sweep_pile(ep, lo, hi, D, s_hat, plain_p or p, with_k,
+                               u_valid=window),
             act, nbytes, Cs)
 
     def check_rows(tag, ep, with_k, act=None):
@@ -715,12 +729,36 @@ def main() -> int:
     check_pixel("per-pixel C=1", epis, active, lo, hi, True)
     rgb_gain = torch.tensor([1.0, 0.8, 0.6], device=dev)
     epis3 = (epis[:64] * rgb_gain).contiguous()
-    check_pixel("per-pixel C=3 (64 rows)", epis3, active[:64].contiguous(),
-                lo[:64].contiguous(), hi[:64].contiguous(), True)
+    # C=3 at S=100 (items held partly in registers, partly in a packed
+    # column) under each rule: linear, nearest, a window of the (v, u)
+    # mesh's kind (its pixels only), k_best
+    act3, lo3, hi3 = (x[:64].contiguous() for x in (active, lo, hi))
+    full3 = lambda x: torch.full((64, U), x, dtype=torch.float32, device=dev)
+    win3 = (37, U - 41)
+    act3w = act3.clone()
+    act3w[:, :win3[0]] = False
+    act3w[:, win3[1] + 1:] = False
+    modes3 = {}
+    for tag3, args3, kw3 in (
+            ("per-pixel", (act3, lo3, hi3, True), {}),
+            ("uniform", (act3, full3(DMIN), full3(DMAX), False), {}),
+            ("per-pixel nearest", (act3, lo3, hi3, True),
+             dict(p=nearest_params)),
+            ("per-pixel window", (act3w, lo3, hi3, True),
+             dict(window=win3)),
+            ("uniform nearest window", (act3w, full3(DMIN), full3(DMAX),
+                                        False),
+             dict(p=nearest_params, window=win3)),
+            ("uniform k_best", (act3, full3(DMIN), full3(DMAX), False),
+             dict(with_k=True))):
+        modes3[f"C=3 {tag3} (64 rows)"], _ = check_pixel(
+            f"{tag3} C=3 (64 rows)", epis3, *args3, **kw3)
+    del act3, lo3, hi3, act3w
     # the new modes, each bitwise against its plain version: line mode's
     # k_best, the fast cap (the plain sweep with 5 mean-shift steps), the
     # nearest rule with uniform and per-pixel bounds
     modes = {k: {} for k in ("sweep_pixel", "sweep_tiles", "paint")}
+    modes["sweep_pixel"].update(modes3)
     modes["sweep_pixel"]["k_best"], res_k = check_pixel(
         "uniform C=1 k_best", epis, active, full(DMIN), full(DMAX), False,
         with_k=True)

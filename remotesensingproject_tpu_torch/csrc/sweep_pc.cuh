@@ -37,11 +37,20 @@
 // Bound on this card: fp32 CUDA-core arithmetic that cannot fuse (valid
 // samples x mean-shift steps x (4C + 5) operations); the mean shift is a
 // nonlinear weight inside a loop on its own last result, so the tensor
-// cores have no part.  What limits the layout is shared memory: a thread
-// keeps the S x C samples of its item staged across the mean-shift steps
-// (400 bytes at S = 100, C = 1; 1,600 at C = 4), so an SM holds some 500
-// threads at C = 1 and some 130 at C = 4, and the inner loop must find its
-// parallelism inside a thread.
+// cores have no part.  What limits the layout is where a thread keeps the
+// S x C samples of its item across the mean-shift steps (400 bytes at
+// S = 100, C = 1; 1,200 at C = 3; 1,600 at C = 4), which sets the warps an
+// SM holds, so the inner loop must find its parallelism inside a thread.
+// In shared memory alone an SM holds 16 warps at C = 1, 5 at C = 3 and 4 at
+// C = 4.  At C = 3 a thread holds 32 samples in registers and the rest in
+// shared memory, and an SM holds 8 warps (128-thread blocks, 2 an SM; 255
+// registers a thread).  8 is the most: a third warp on one of the SM's four
+// register sub-partitions (16,384 registers each) leaves a thread 168
+// registers, and 9 warps' runs do not fit in those beside the working
+// registers and in 228 KB of shared memory (on an H100, capping the
+// registers with __maxnreg__ only spilled).  Other C keep their run in
+// shared memory: at C = 4 the registers measured slower, and C = 1 needs
+// none.
 //
 // Design.  A thread owns one (pixel, candidate) item at a time.  A block
 // takes a group of G consecutive entries of the pixel list; their G x D
@@ -55,22 +64,30 @@
 // slots d * G + p (`by_pixel`), which makes them neighbouring pixels of one
 // candidate: under the shared-shift rule those read contiguous addresses.
 // An item's thread
-//   * stages its samples in its own column of shared memory, in batches:
-//     the positions of a batch, then all its loads (through the read-only
-//     path, branch-free; the ceil column is read only where it differs from
-//     the floor column), then the interpolation, so that many loads are in
-//     flight; it notes the run [s_a, s_b] of valid samples: the position
-//     (under every rule) is monotone in s, so the valid samples are one run;
-//   * runs the mean shift over that run only, with no validity test, each
-//     staged word read once a step, in batches of 8 samples whose K are
-//     independent while the adds to the sums keep their order; a fixed
-//     point of r_bar ends it, since later steps repeat the last one;
+//   * stages its samples in batches: the positions of a batch, then all its
+//     loads (through the read-only path, branch-free; the ceil column is
+//     read only where it differs from the floor column), then the
+//     interpolation, so that many loads are in flight; it notes the run
+//     [s_a, s_b] of valid samples: the position (under every rule) is
+//     monotone in s, so the valid samples are one run.  Where the
+//     instantiation holds R samples in registers (rslf_pc_regs), those are
+//     the R around s_hat (valid for the most candidates), staged after the
+//     others (so that the registers fill only then) and set to FLT_MAX where
+//     invalid, which makes their K and their numerator term exact zeros;
+//     the other samples sit in the thread's column of shared memory;
+//   * runs the mean shift over that run only, in s order (the column's
+//     samples before the register segment, the segment's batches that meet
+//     the run, the column's samples after it), with no validity test, each
+//     staged word read once a step, in batches whose K are independent
+//     while the adds to the sums keep their order; a fixed point of r_bar
+//     ends it, since later steps repeat the last one;
 //   * leaves its score and r_bar in the item's slot of shared memory.
-// For C = 1, 2 and 4 a column is packed into 16-byte slots laid
-// [slot][thread], so a batch is a few conflict-free 16-byte accesses; for
-// other C it is laid [word][thread].  Each C <= 4 has its own instantiation
-// with the channel vectors in registers and no test in a channel loop; any
-// other C keeps them in shared memory.
+// For C = 1 to 4 a column is packed into 16-byte slots laid [slot][thread],
+// so a batch is a few conflict-free 16-byte accesses; the batches start at
+// a slot (at C = 3 every fourth sample).  Each C <= 4 has its own
+// instantiation with the channel vectors in registers and no test in a
+// channel loop; any other C keeps them in shared memory, its samples laid
+// [word][thread].
 // After a window one thread per pixel folds its pixel's items, in candidate
 // order, into the pixel's running best, score sum and allowed count, so a
 // pixel may span windows and D is not limited.  At the end of the group the
@@ -81,9 +98,12 @@
 // The launcher chooses the block size from the occupancy the runtime
 // reports for this build (the most resident threads an SM holds), once per
 // kernel and size, and G from the number of pixels and resident blocks.
+// The per-instantiation choices below (rslf_pc_regs, rslf_pc_um,
+// rslf_pc_us) are the ones measured fastest on an H100;
+// scripts/torch_pc_designs.py builds and times others.
 #pragma once
 
-#include <initializer_list>
+#include <cfloat>
 #include <mutex>
 
 #include "common.cuh"
@@ -145,10 +165,29 @@ __host__ __device__ inline int rslf_pc_gmax(bool masked, bool by_pixel) {
 // Items of a window's list for each thread of the block.
 #define RSLF_PC_WINDOW 4
 
-// Words of one thread's column of staged samples (see PcCol): whole
-// 16-byte slots where the column is packed.
+// Samples of an item's run that its thread holds in registers, per channel
+// instantiation (a multiple of the batches, rslf_pc_um and rslf_pc_us; 0:
+// the whole run sits in shared memory, as for the `any C` one, maxc = 0).
+__host__ __device__ constexpr int rslf_pc_regs(int maxc) {
+  return maxc == 3 ? 32 : 0;
+}
+
+// Samples a thread keeps in flight: rslf_pc_um in the mean-shift loop,
+// rslf_pc_us while staging (each staged sample is up to 2 C loads).  Both
+// times NC are multiples of 4, the words of a slot.  The mean-shift batch is
+// 4 at C = 3, where the register segment leaves few registers (on an H100
+// 5% faster than 8 there, 10% slower at C = 1).
+__host__ __device__ constexpr int rslf_pc_um(int nc) { return nc == 3 ? 4 : 8; }
+__host__ __device__ constexpr int rslf_pc_us(int nc) {
+  return nc == 1 ? 16 : 4;
+}
+
+// Words of one thread's column of staged samples (see PcCol): the samples
+// outside the register segment, in whole 16-byte slots.
 __host__ __device__ inline int rslf_pc_col_words(int S, int C, int maxc) {
-  const bool packed = maxc == 1 || maxc == 2 || maxc == 4;
+  const bool packed = maxc == 1 || maxc == 2 || maxc == 3 || maxc == 4;
+  const int R = rslf_pc_regs(maxc);
+  if (R > 0) S = S > R ? S - R : 0;
   return packed ? (S * C + 3) / 4 * 4 : S * C;
 }
 
@@ -294,14 +333,17 @@ struct PcRuleNearestWindow {
   }
 };
 
-// A thread's column of staged samples.  For C = 1, 2 and 4 the words
-// s * C + c of a column are packed four to a 16-byte slot, slot q of thread
-// tid at word (q * T + tid) * 4, so that a warp reads or writes whole slots
-// without bank conflicts and a batch of samples is a few 16-byte accesses.
-// For other C word i of thread tid sits at i * T + tid.
+// A thread's column of staged samples.  For C = 1 to 4 the words i * C + c
+// of a column (i the sample's place in the column) are packed four to a
+// 16-byte slot, slot q of thread tid at word (q * T + tid) * 4, so that a
+// warp reads or writes whole slots without bank conflicts and a batch of
+// samples is a few 16-byte accesses.  (The `any C` instantiation keeps its
+// samples in a layout of its own, word i of thread tid at i * T + tid.)
 template <int NC>
 struct PcCol {
-  static constexpr bool kPacked = NC == 1 || NC == 2 || NC == 4;
+  static constexpr bool kPacked = NC == 1 || NC == 2 || NC == 3 || NC == 4;
+  // a batch of samples starts at a place i with (i * NC) % 4 == 0: a slot
+  static constexpr int kAlign = !kPacked ? 1 : (NC == 3 ? 4 : 4 / NC);
   float* base;  // the thread's first word
   int T;
   __device__ __forceinline__ PcCol(float* smem, int tid, int threads)
@@ -339,36 +381,38 @@ struct PcCol {
   }
 };
 
-// Samples a thread keeps in flight: UM in the mean-shift loop, US while
-// staging (each staged sample is up to 2 C loads).  UM * NC and US * NC are
-// multiples of 4, the words of a slot.
-#define RSLF_PC_UM(NC) 8
-#define RSLF_PC_US(NC) ((NC) == 1 ? 16 : 4)
-
-// Stages samples s .. s + UN - 1 of one item into its column: all
-// positions, then all loads, then the interpolation, so that up to
-// 2 * UN * NC loads are in flight at once.  `rs` points at row s of the
-// pixel's EPI.  The ceil column is read only where it differs from the
-// floor column; elsewhere its weight is 0 and the floor value stands in.
-// `vec` reads the 4 channels of a column as one 16-byte word (NC == 4,
-// aligned volume).
-template <typename Rule, int NC, int UN>
-__device__ __forceinline__ void rslf_pc_stage(const float* rs,
-                                              const PcCol<NC>& col, int s,
-                                              float ds, int u, int U, int lo,
-                                              int hi, float delta,
-                                              float slope, bool vec, int& s_a,
-                                              int& s_b) {
+// Gathers samples s .. s + UN - 1 of one item into x: all positions, then
+// all loads, then the interpolation, so that up to 2 * UN * NC loads are in
+// flight at once.  `rs` points at row s of the pixel's EPI.  The ceil column
+// is read only where it differs from the floor column; elsewhere its weight
+// is 0 and the floor value stands in.  `vec` reads the 4 channels of a
+// column as one 16-byte word (NC == 4, aligned volume).  ok[j]: sample
+// s + j is valid, and [s_a, s_b] grows to take it in.  With kGuard (the
+// register segment, gathered after the column's samples) a sample at or
+// beyond row S is invalid and reads row S - 1, and s_b only grows.
+template <typename Rule, int NC, int UN, bool kGuard>
+__device__ __forceinline__ void rslf_pc_gather(
+    const float* rs, int s, int S, float ds, int u, int U, int lo, int hi,
+    float delta, float slope, bool vec, float (&x)[UN * NC], bool (&ok)[UN],
+    int& s_a, int& s_b) {
   PcPos q[UN];
-  float xa[UN][NC], xb[UN][NC], x[UN * NC];
+  int rj[UN];  // the row read for sample s + j, counted from row s
+  float xa[UN][NC], xb[UN][NC];
 #pragma unroll
-  for (int j = 0; j < UN; ++j)
+  for (int j = 0; j < UN; ++j) {
     q[j] = Rule::pos(ds - (float)j, u, U, lo, hi, delta, slope);
+    rj[j] = j;
+    if (kGuard && s + j >= S) {
+      q[j].ok = q[j].up = false;
+      q[j].i0 = 0;
+      rj[j] = S - 1 - s;
+    }
+  }
   if (NC == 4 && vec) {
 #pragma unroll
     for (int j = 0; j < UN; ++j) {
       const float4* r4 =
-          reinterpret_cast<const float4*>(rs) + (j * U + q[j].i0);
+          reinterpret_cast<const float4*>(rs) + (rj[j] * U + q[j].i0);
       const float4 va = __ldg(r4);
       const float4 vb = q[j].up ? __ldg(r4 + 1) : va;
       xa[j][0] = va.x, xa[j][1 % NC] = va.y, xa[j][2 % NC] = va.z,
@@ -379,7 +423,7 @@ __device__ __forceinline__ void rslf_pc_stage(const float* rs,
   } else {
 #pragma unroll
     for (int j = 0; j < UN; ++j) {
-      const float* ra = rs + (j * U + q[j].i0) * NC;
+      const float* ra = rs + (rj[j] * U + q[j].i0) * NC;
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         xa[j][c] = __ldg(ra + c);
@@ -392,23 +436,53 @@ __device__ __forceinline__ void rslf_pc_stage(const float* rs,
 #pragma unroll
     for (int c = 0; c < NC; ++c)
       x[j * NC + c] = (1.f - q[j].t) * xa[j][c] + q[j].t * xb[j][c];
+    ok[j] = q[j].ok;
     if (q[j].ok) {
       s_a = min(s_a, s + j);
-      s_b = s + j;
+      s_b = kGuard ? max(s_b, s + j) : s + j;
     }
   }
-  col.store(s * NC, x);
 }
 
-// One mean-shift step over samples s .. s + UN - 1 of the column: all
-// loads, then all K, then the sums in s order.
+// Stages samples [s, end) of one item at places s - off .. of its column,
+// in batches of rslf_pc_us (a batch's first place starts a slot), then
+// one at a time.
+template <typename Rule, int NC>
+__device__ __forceinline__ void rslf_pc_stage(const PcArgs& a,
+                                              const float* row, int u,
+                                              float delta,
+                                              const PcCol<NC>& col, bool vec,
+                                              int s, int end, int off,
+                                              int& s_a, int& s_b) {
+  constexpr int US = rslf_pc_us(NC);
+  const int U = a.U;
+  const float fsh = (float)a.s_hat;
+  const float* rs = row + (size_t)s * U * NC;
+  for (; s + US <= end; s += US, rs += US * U * NC) {
+    float x[US * NC];
+    bool ok[US];
+    rslf_pc_gather<Rule, NC, US, false>(rs, s, 0, fsh - (float)s, u, U,
+                                        a.u_lo, a.u_hi, delta, a.slope, vec,
+                                        x, ok, s_a, s_b);
+    col.store((s - off) * NC, x);
+  }
+  for (; s < end; ++s, rs += U * NC) {
+    float x[NC];
+    bool ok[1];
+    rslf_pc_gather<Rule, NC, 1, false>(rs, s, 0, fsh - (float)s, u, U,
+                                       a.u_lo, a.u_hi, delta, a.slope, vec,
+                                       x, ok, s_a, s_b);
+    col.store((s - off) * NC, x);
+  }
+}
+
+// One mean-shift step over UN samples x[j * NC + c]: all K, then the sums
+// in s order.
 template <int NC, int UN>
-__device__ __forceinline__ void rslf_pc_ms(const PcCol<NC>& col, int s,
-                                           float a_coef,
-                                           const float (&rb)[NC], float& sk,
-                                           float (&srk)[NC]) {
-  float x[UN * NC], k[UN];
-  col.load(s * NC, x);
+__device__ __forceinline__ void rslf_pc_ms_vals(const float* x, float a_coef,
+                                                const float (&rb)[NC],
+                                                float& sk, float (&srk)[NC]) {
+  float k[UN];
 #pragma unroll
   for (int j = 0; j < UN; ++j) {
     float dsq = 0.f;
@@ -429,6 +503,32 @@ __device__ __forceinline__ void rslf_pc_ms(const PcCol<NC>& col, int s,
   }
 }
 
+// The same over the samples at places [i, end) of the column: one at a
+// time up to the first place that starts a slot, then batches of
+// rslf_pc_um loaded together, then one at a time.
+template <int NC>
+__device__ __forceinline__ void rslf_pc_ms(const PcCol<NC>& col, int i,
+                                           int end, float a_coef,
+                                           const float (&rb)[NC], float& sk,
+                                           float (&srk)[NC]) {
+  constexpr int UM = rslf_pc_um(NC);
+  constexpr int kAlign = PcCol<NC>::kAlign;
+  const int i_al = min(end, (i + kAlign - 1) / kAlign * kAlign);
+  float x[UM * NC], x1[NC];
+  for (; i < i_al; ++i) {
+    col.load(i * NC, x1);
+    rslf_pc_ms_vals<NC, 1>(x1, a_coef, rb, sk, srk);
+  }
+  for (; i + UM <= end; i += UM) {
+    col.load(i * NC, x);
+    rslf_pc_ms_vals<NC, UM>(x, a_coef, rb, sk, srk);
+  }
+  for (; i < end; ++i) {
+    col.load(i * NC, x1);
+    rslf_pc_ms_vals<NC, 1>(x1, a_coef, rb, sk, srk);
+  }
+}
+
 // One item with NC channels in registers: stages the samples of candidate
 // `delta` of pixel (row, u), runs the mean shift, and leaves the score, the
 // final r_bar and (if `o_rbp`) the r_bar the last step started with.
@@ -438,32 +538,19 @@ __device__ __forceinline__ unsigned long long rslf_pc_item(
     const PcArgs& a, const float* row, int u, float delta,
     const PcCol<NC>& col, bool vec, float* o_score, float* o_rb,
     float* o_rbp) {
-  constexpr int US = RSLF_PC_US(NC);
-  constexpr int UM = RSLF_PC_UM(NC);
-  static_assert((US * NC) % 4 == 0 && (UM * NC) % 4 == 0, "whole slots");
+  static_assert((rslf_pc_us(NC) * NC) % 4 == 0 &&
+                    (rslf_pc_um(NC) * NC) % 4 == 0,
+                "whole slots");
   const int S = a.S, U = a.U;
   // stage the samples; [s_a, s_b] is the run of valid ones
   int s_a = S, s_b = -1;
-  {
-    const float fsh = (float)a.s_hat;
-    const float* rs = row;
-    int s = 0;
-    for (; s + US <= S; s += US, rs += US * U * NC)
-      rslf_pc_stage<Rule, NC, US>(rs, col, s, fsh - (float)s, u, U, a.u_lo,
-                                  a.u_hi, delta, a.slope, vec, s_a, s_b);
-    for (; s < S; ++s, rs += U * NC)
-      rslf_pc_stage<Rule, NC, 1>(rs, col, s, fsh - (float)s, u, U, a.u_lo,
-                                 a.u_hi, delta, a.slope, vec, s_a, s_b);
-  }
+  rslf_pc_stage<Rule, NC>(a, row, u, delta, col, vec, 0, S, 0, s_a, s_b);
   const int card = (s_b >= s_a) ? s_b - s_a + 1 : 0;
 
   float rb[NC], rbp[NC], srk[NC];
   const float* r0 = row + ((size_t)a.s_hat * U + u) * NC;
 #pragma unroll
   for (int c = 0; c < NC; ++c) rb[c] = __ldg(r0 + c);
-  // a batch starts at a slot: the first sample with (s * NC) % 4 == 0
-  constexpr int kAlign = 4 / (NC == 3 ? 4 : NC);
-  const int s_al = min(s_b + 1, (s_a + kAlign - 1) / kAlign * kAlign);
   // truncated mean shift; a fixed point of r_bar ends it, since every later
   // step would repeat the last one bit for bit
   float sum_k = 0.f;
@@ -476,11 +563,97 @@ __device__ __forceinline__ unsigned long long rslf_pc_item(
       rbp[c] = rb[c];
       srk[c] = 0.f;
     }
-    int s = s_a;
-    for (; s < s_al; ++s) rslf_pc_ms<NC, 1>(col, s, a.a_coef, rb, sk, srk);
-    for (; s + UM <= s_b + 1; s += UM)
-      rslf_pc_ms<NC, UM>(col, s, a.a_coef, rb, sk, srk);
-    for (; s <= s_b; ++s) rslf_pc_ms<NC, 1>(col, s, a.a_coef, rb, sk, srk);
+    rslf_pc_ms<NC>(col, s_a, s_b + 1, a.a_coef, rb, sk, srk);
+    bool same = true;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float nr = (sk > 0.f) ? srk[c] / sk : 0.f;
+      same = same && (nr == rb[c]);
+      rb[c] = nr;
+    }
+    sum_k = sk;
+    if (same) break;
+  }
+  *o_score = (card > 0) ? sum_k / (float)card : 0.f;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    o_rb[c] = rb[c];
+    if (o_rbp != nullptr) o_rbp[c] = rbp[c];
+  }
+  return (unsigned long long)it * (unsigned long long)card;
+}
+
+// rslf_pc_item for an instantiation that holds R = rslf_pc_regs(NC) > 0
+// samples in registers: the R around s_hat (valid for the most candidates),
+// from r0; the column holds samples [0, r0) at place s and [r0 + R, S) at
+// place s - R.  The results are rslf_pc_item's bit for bit: the sums run
+// over the valid run in s order, and a register sample outside it reads
+// FLT_MAX, whose K and numerator term are exact zeros.  It is an item of
+// its own, not a branch of rslf_pc_item: a shared item made C = 1 up to 4%
+// slower on an H100.
+template <typename Rule, int NC>
+__device__ __forceinline__ unsigned long long rslf_pc_item_regs(
+    const PcArgs& a, const float* row, int u, float delta,
+    const PcCol<NC>& col, bool vec, float* o_score, float* o_rb,
+    float* o_rbp) {
+  constexpr int US = rslf_pc_us(NC);
+  constexpr int UM = rslf_pc_um(NC);
+  constexpr int R = rslf_pc_regs(NC);
+  static_assert((US * NC) % 4 == 0 && (UM * NC) % 4 == 0, "whole slots");
+  static_assert(R % US == 0 && R % UM == 0, "whole batches in registers");
+  const int S = a.S, U = a.U;
+  // r0 a multiple of 4: the column's places after the segment start at a
+  // slot
+  const int r0 = max(0, min(a.s_hat - R / 2, S - R)) & ~3;
+  // stage the column's samples in s order, then the segment's (so that the
+  // registers fill only then); [s_a, s_b] is the run of valid ones
+  int s_a = S, s_b = -1;
+  float xr[R * NC];
+  rslf_pc_stage<Rule, NC>(a, row, u, delta, col, vec, 0, r0, 0, s_a, s_b);
+  rslf_pc_stage<Rule, NC>(a, row, u, delta, col, vec, r0 + R, S, R, s_a,
+                          s_b);
+  {
+    const float fsh = (float)a.s_hat;
+#pragma unroll
+    for (int b = 0; b < R; b += US) {
+      float x[US * NC];
+      bool ok[US];
+      rslf_pc_gather<Rule, NC, US, true>(
+          row + (size_t)(r0 + b) * U * NC, r0 + b, S, fsh - (float)(r0 + b),
+          u, U, a.u_lo, a.u_hi, delta, a.slope, vec, x, ok, s_a, s_b);
+#pragma unroll
+      for (int j = 0; j < US; ++j)
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          xr[(b + j) * NC + c] = ok[j] ? x[j * NC + c] : FLT_MAX;
+    }
+  }
+  const int card = (s_b >= s_a) ? s_b - s_a + 1 : 0;
+
+  float rb[NC], rbp[NC], srk[NC];
+  const float* rh = row + ((size_t)a.s_hat * U + u) * NC;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) rb[c] = __ldg(rh + c);
+  // truncated mean shift over the run in s order: the column's samples
+  // before the segment, the segment's batches that meet the run, the
+  // column's samples after it; a fixed point of r_bar ends it
+  float sum_k = 0.f;
+  int it = 0;
+  while (it < a.iters) {
+    ++it;
+    float sk = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      rbp[c] = rb[c];
+      srk[c] = 0.f;
+    }
+    rslf_pc_ms<NC>(col, s_a, min(s_b + 1, r0), a.a_coef, rb, sk, srk);
+#pragma unroll
+    for (int b = 0; b < R; b += UM)
+      if (r0 + b + UM > s_a && r0 + b <= s_b)
+        rslf_pc_ms_vals<NC, UM>(xr + b * NC, a.a_coef, rb, sk, srk);
+    rslf_pc_ms<NC>(col, max(s_a, r0 + R) - R, s_b + 1 - R, a.a_coef, rb, sk,
+                   srk);
     bool same = true;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
@@ -684,7 +857,11 @@ __global__ void sweep_pc_kernel(const PcArgs a) {
           const float delta = px_lo[p] + ((float)d * px_rng[p]) / den;
           const float* row = a.epis + (size_t)v * S * U * C;  // [S][U][C]
           float* o_rbp = with_k ? it_rbp + j * C : nullptr;
-          if constexpr (MAXC > 0) {
+          if constexpr (rslf_pc_regs(MAXC) > 0) {
+            work += rslf_pc_item_regs<Rule, MAXC>(a, row, u, delta, col, vec,
+                                                  it_score + j,
+                                                  it_rb + j * C, o_rbp);
+          } else if constexpr (MAXC > 0) {
             work += rslf_pc_item<Rule, MAXC>(a, row, u, delta, col, vec,
                                              it_score + j, it_rb + j * C,
                                              o_rbp);
@@ -856,7 +1033,8 @@ cudaError_t plan(int S, int C, bool with_k, int g_max, PcPlan* out) {
                              optin);
   if (err != cudaSuccess) return err;
   PcPlan best{0, 0, 0, 0, sms};
-  for (const int T : {128, 64, 256, 32}) {
+  constexpr int kSizes[4] = {128, 64, 256, 32};
+  for (const int T : kSizes) {
     const int ncap = RSLF_PC_WINDOW * T;
     const long long bytes =
         4LL * rslf_pc_layout(S, C, T, MAXC, ncap, g_max, with_k).total;

@@ -32,9 +32,12 @@
 // unmasked mode: every candidate of every listed pixel is an item, a thread
 // owns one item at a time, blocks take groups of consecutive pixels, and
 // one thread per pixel folds the scores in candidate order.  What bounds it
-// is the shared memory that holds each thread's staged samples (S x C
-// floats a thread), which sets the resident threads of an SM; the launcher
-// picks the block size from the occupancy the runtime reports.  The linear
+// is where each thread keeps its staged samples (S x C floats a thread),
+// which sets the resident threads of an SM: shared memory at C = 1; at
+// C = 3 (the RGB scene) the 32 samples around s_hat in registers and the
+// rest in shared memory, 8 warps an SM where shared memory alone held 5
+// (csrc/sweep_pc.cuh says why 8 is the most).  The launcher picks the block
+// size from the occupancy the runtime reports.  The linear
 // and the nearest rule are two instantiations of the core (PcRulePixel,
 // PcRuleNearest), each with a twin for a window of valid columns other than
 // the whole row (PcRulePixelWindow, PcRuleNearestWindow), so that whole

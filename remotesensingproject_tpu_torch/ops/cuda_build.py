@@ -143,11 +143,14 @@ def check(err: int, lib: ctypes.CDLL, error_string: str, what: str,
 def read_plan(call, lib: ctypes.CDLL, error_string: str, what: str,
               size: str) -> dict:
     """A sweep launcher's plan as a dict.  ``call(out)`` fills five ints
-    and returns the CUDA error code."""
+    and returns the CUDA error code; ``resident_warps`` (an SM's) is
+    threads x blocks_per_sm / 32."""
     out = (ctypes.c_int * 5)()
     check(call(out), lib, error_string, f"{what} plan", no_fit=size)
     keys = ("threads", "window_items", "smem_bytes", "blocks_per_sm", "sms")
-    return dict(zip(keys, out))
+    plan = dict(zip(keys, out))
+    plan["resident_warps"] = plan["threads"] * plan["blocks_per_sm"] // 32
+    return plan
 
 
 def stream_ptr(device: torch.device) -> ctypes.c_void_p:

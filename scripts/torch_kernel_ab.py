@@ -10,8 +10,9 @@ the script builds that tree's kernels and prints one JSON line of
 CUDA-event times (medians), at the shapes of ``chip_smoke.py``:
 
 * at the inputs of the first level-0 pass of the bench scene (C=1): the
-  pixel sweep (5 calls), the same with no mean-shift step (its staging
-  and bookkeeping alone), then merge, the median (20 calls; also on a
+  pixel sweep (5 calls) with its launch plan, the same with no mean-shift
+  step (its staging and bookkeeping alone), then merge, the median (20
+  calls; also on a
   64-row slab of the four-band scene, C=4, and at the level-4 shape of the
   pyramid cut from the level-0 inputs, each both as one call on the host
   clock and as the device time a launch back to back, ``device_ms``, with
@@ -22,14 +23,24 @@ CUDA-event times (medians), at the shapes of ``chip_smoke.py``:
   of that scene (3 calls), and on a 64-row slab of the four-band scene
   with ``k_best`` (C=4, 5 calls) and on a twentieth of that slab's pixels
   (a late pass);
+* the pixel sweep at the first level-0 pass of bench.py's D240, HR and RGB
+  scenes (C=1, C=1, C=3; made from its draws as ``chip_smoke.py``'s phase
+  15 makes them; 3 calls each), each with its launch plan; at the RGB
+  scene's, the two other launchers of the core at C=3 too (3 calls each):
+  the row sweep over every row (the pile route on RGB frames) and the tile
+  sweep in the tile mode (the route past D = 1024) under per-pixel bounds
+  drawn from a seed, each with its launch plan and the fp32 bound of its
+  work (``_bound_ms``, as ``chip_smoke.py`` computes it);
 * the wall time of the C=1 pipeline (second run, and the second to sixth
   runs as ``c1_pipeline_runs_s``) and of the four-band pipeline (one run),
   host clock around work that ends in a synchronise;
 * at the first-pass inputs of levels 1 and 4 of the four-band pyramid: the
   tile sweep in the tile mode (5 and 20 calls) and, at level 1, in the
   pixel mode (3 calls);
-* the registers nvcc reports for each kernel, and the median's SASS
-  instruction and FMNMX counts.
+* the registers nvcc reports for each kernel, the median's SASS
+  instruction and FMNMX counts, and per instantiation of the sweep core
+  its SASS instruction count and a digest of its instructions (equal
+  digests: the same machine code).
 
 Each JSON line goes to standard output, so a chip call's own log holds the
 numbers.  List the roots as A B B A to compare two trees within one call.
@@ -38,13 +49,41 @@ numbers.  List the roots as A B B A to compare two trees within one call.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import importlib.util
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def sass_digests(lib_path) -> dict:
+    """{sweep core instantiation: "instructions digest"} of a built library
+    (``cuobjdump -sass``; its instructions' text, addresses and encodings
+    left out); {} where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    cs = _chip_smoke()
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=120).stdout
+    ops, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = cs.kernel_name(ln) if "sweep_pc_kernel" in ln else None
+            if name:
+                ops[name] = []
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(.*?);", ln)
+        if name and m:
+            ops[name].append(m.group(1).strip())
+    return {k: f"{len(v)} " + hashlib.sha256(
+        "\n".join(v).encode()).hexdigest()[:16] for k, v in ops.items()}
 
 
 def _chip_smoke():
@@ -62,6 +101,7 @@ def one(root: str) -> dict:
 
     cs = _chip_smoke()
     sys.path.insert(0, os.path.abspath(root))
+    from remotesensingproject_tpu_torch import bench
     from remotesensingproject_tpu_torch.config import DEFAULT_PARAMS as p
     from remotesensingproject_tpu_torch.models.depth2d import Depth2DComputer
     from remotesensingproject_tpu_torch.models.fine_to_coarse import \
@@ -77,8 +117,11 @@ def one(root: str) -> dict:
         sweep_pile_rows
     from remotesensingproject_tpu_torch.ops.sweep_pallas_perpixel import (
         sweep_pile_tiles, tile_quantized_bounds)
-    from remotesensingproject_tpu_torch.ops.sweep_pallas_pixel import \
-        sweep_pile_pixel
+    from remotesensingproject_tpu_torch.ops import (sweep_pallas,
+                                                    sweep_pallas_perpixel,
+                                                    sweep_pallas_pixel)
+    from remotesensingproject_tpu_torch.ops.sweep_pallas_pixel import (
+        flops_per_sample_step, sweep_pile_pixel)
 
     cuda_build.build()
     dev = torch.device("cuda")
@@ -96,6 +139,7 @@ def one(root: str) -> dict:
     no_steps = dataclasses.replace(p, mean_shift_max_iter=0)
     out = {"root": root, "card": cs.card_line(),
            "sweep_pixel_ms": cs.time_ms(torch, pixel, reps=5),
+           "sweep_pixel_plan": sweep_pallas_pixel.launch_plan(cs.S, 1),
            "sweep_pixel_no_steps_ms": cs.time_ms(
                torch, lambda: pixel(no_steps), reps=5),
            "sweep_rows_ms": cs.time_ms(
@@ -178,6 +222,66 @@ def one(root: str) -> dict:
         setup=lambda: fresh(claim_late))
     del comp, st, res, frames, claim0, claim_late
     torch.cuda.empty_cache()
+    for tag, env in (("d240", {"BENCH_D240": "1"}), ("hr", {"BENCH_HR": "1"}),
+                     ("rgb", {"BENCH_RGB": "1"})):
+        cfg = bench.bench_config(env)
+        if cfg.rgb:
+            v_, _ = bench.synthetic_sequence_rgb(cfg.S, cfg.V, cfg.U,
+                                                 device=dev)
+        else:
+            v_, _ = bench.synthetic_sequence(cfg.S, cfg.V, cfg.U,
+                                             dmin=cfg.dmin, dmax=cfg.dmax,
+                                             device=dev)
+        c_ = Depth2DComputer(v_, cfg.dmin, cfg.dmax, cfg.D, params=p,
+                             device=dev)
+        del v_
+        st_, sh_ = c_.initial_state(), cfg.S // 2
+        act_ = (st_.ce_mask[sh_] & st_.claim[sh_]).contiguous()
+        del st_
+
+        def scene_pixel(c_=c_, cfg=cfg, sh_=sh_, act_=act_):
+            return sweep_pile_pixel(c_.epis, cfg.dmin, cfg.dmax, cfg.D, sh_,
+                                    p, act_)
+
+        scene_pixel()
+        out[f"sweep_pixel_{tag}_ms"] = cs.time_ms(torch, scene_pixel, reps=3)
+        out[f"sweep_pixel_{tag}_plan"] = sweep_pallas_pixel.launch_plan(
+            cfg.S, c_.epis.shape[-1])
+        if cfg.rgb:
+            def rows3(c_=c_, cfg=cfg, sh_=sh_, work=None):
+                return sweep_pile_rows(c_.epis, cfg.dmin, cfg.dmax, cfg.D,
+                                       sh_, p, work_count=work)
+
+            gr = torch.Generator(device=dev).manual_seed(0)
+            span = cfg.dmax - cfg.dmin
+            plo = cfg.dmin + 0.25 * span * torch.rand(act_.shape,
+                                                      generator=gr,
+                                                      device=dev)
+            phi = cfg.dmax - 0.25 * span * torch.rand(act_.shape,
+                                                      generator=gr,
+                                                      device=dev)
+            qlo, qhi = tile_quantized_bounds(act_, plo, phi,
+                                             (cfg.dmin, cfg.dmax))
+
+            def tiles3(c_=c_, cfg=cfg, sh_=sh_, act_=act_, work=None):
+                return sweep_pile_tiles(c_.epis, qlo, qhi, cfg.D, sh_, p,
+                                        active_v_u=act_, pdmin_v_u=plo,
+                                        pdmax_v_u=phi, work_count=work)
+
+            for key, fn in (("sweep_rows_c3_pile", rows3),
+                            ("sweep_tiles_c3_tile", tiles3)):
+                # the fp32 bound of this run's work, as chip_smoke.py's
+                w = torch.zeros(1, dtype=torch.int64, device=dev)
+                fn(work=w)
+                out[f"{key}_ms"] = cs.time_ms(torch, fn, reps=3)
+                out[f"{key}_bound_ms"] = int(w) * flops_per_sample_step(3) \
+                    / cs.PEAK_FP32 * 1e3
+            out["sweep_rows_c3_plan"] = sweep_pallas.launch_plan(cfg.S, 3)
+            out["sweep_tiles_c3_plan"] = sweep_pallas_perpixel.launch_plan(
+                cfg.S, 3, False, True)
+            del rows3, tiles3, plo, phi, qlo, qhi
+        del c_, act_, scene_pixel
+        torch.cuda.empty_cache()
 
     def pipeline(v):
         torch.cuda.synchronize()
@@ -221,6 +325,10 @@ def one(root: str) -> dict:
                                                    or "")
                     if "registers" in ln}
     out["sass_median"] = cs.sass_summary(cuda_build.library_path("median"))
+    out["sass_sweep"] = {f"{n} {fn}": d for n in ("sweep_pixel", "sweep_rows",
+                                                   "sweep_tiles")
+                         for fn, d in sass_digests(
+                             cuda_build.library_path(n)).items()}
     return out
 
 

@@ -9,7 +9,9 @@ and the tile sweep share the (pixel, candidate) core ``csrc/sweep_pc.cuh``;
 their tests cover the sizes its layout must survive: D that is not a
 multiple of a warp, D beyond a window's list, every channel
 instantiation, pixels with no allowed candidate, a list of one pixel and
-lists that do not fill their last group.  The row sweep is a third launcher
+lists that do not fill their last group, and C = 3 at the RGB scene's
+depth S = 100 and at odd depths (part of an item's samples in registers)
+under every rule and mode.  The row sweep is a third launcher
 of that core (shared-shift positions, two item orders); the paint is driven
 from its sources, in tiles of target columns and runs of frames.  The
 median works on tiles staged in shared memory: its tests take every
@@ -547,6 +549,59 @@ def test_sweep_launch_plans_of_new_modes(dev, C, with_k):
     for plan in plans:
         assert plan["threads"] in (32, 64, 128, 256)
         assert plan["blocks_per_sm"] >= 1
+        assert plan["resident_warps"] == \
+            plan["threads"] * plan["blocks_per_sm"] // 32
+    if C == 3:
+        # the RGB scene's depth: at least 8 resident warps an SM, against
+        # the 5 of a whole run in shared memory (32-thread blocks, 5 an
+        # SM).  8 is the most an item a thread can have at S = 100, C = 3:
+        # a third warp on one of the SM's four register sub-partitions
+        # (16,384 registers each) leaves a thread 168 registers, and 9 or
+        # more warps' runs of 1,200 bytes do not fit in those beside the
+        # working registers and in 228 KB of shared memory
+        for nearest in (False, True):
+            plan = sweep_pallas_pixel.launch_plan(100, 3, with_k, nearest)
+            assert plan["resident_warps"] >= 8, plan
+
+
+C3_MODES = ("linear", "nearest", "window", "nearest window", "k_best",
+            "nearest k_best", "fast", "per-pixel", "per-pixel nearest k_best")
+
+
+@pytest.mark.parametrize("mode", C3_MODES)
+@pytest.mark.parametrize("S", [100, 37, 101])
+def test_pixel_c3_full_depth_bitwise(dev, S, mode):
+    """The pixel sweep at C = 3 at the RGB scene's depth (S = 100) and at
+    odd depths (the register segment's hand-over to the column, batch
+    tails), under every rule and mode, bitwise ``sweep_pile``: linear and
+    nearest, both windowed rules, k_best, the fast cap (against 5 steps),
+    uniform and per-pixel grids."""
+    epis = _vol(3, S=S, V=4, U=160, seed=S).to(dev)
+    V, _, U, _ = epis.shape
+    s_hat, D = S // 2, 24
+    lo, hi, active = _ranges(V, U, dev, 800 + S)
+    if "per-pixel" not in mode:
+        lo, hi = torch.full_like(lo, -1.0), torch.full_like(hi, 1.5)
+    kw = dict(dmin_v_u=lo, dmax_v_u=hi) if "per-pixel" in mode else {}
+    p = NEAREST if "nearest" in mode else DepthParams()
+    if mode == "fast":
+        p, plain_p = DepthParams(fast=True), DepthParams(mean_shift_max_iter=5)
+    else:
+        plain_p = p
+    with_k = "k_best" in mode
+    window = None
+    if "window" in mode:  # a u-haloed block's window; its pixels only
+        window = (9, U - 13)
+        active[:, :9] = False
+        active[:, U - 12:] = False
+    n0 = sweep_pile_pixel.launches
+    got = sweep_pile_pixel(epis, -1.0, 1.5, D, s_hat, p, active,
+                           with_k_best=with_k, u_valid=window, **kw)
+    assert sweep_pile_pixel.launches == n0 + 1
+    want = sweep_pile(epis, lo, hi, D, s_hat, plain_p, with_k_best=with_k,
+                      u_valid=window)
+    _same_sweep(got, want, active, with_k)
+    assert (got.best_depth[active] != 0).any()
 
 
 @pytest.mark.parametrize("n_payloads", [1, 2, 3])

@@ -77,6 +77,23 @@ def test_sweep_nearest_matches_jax(C):
     _compare(got, want)
 
 
+@pytest.mark.parametrize("S,s_hat,interp,per_pixel", [
+    (100, 50, "linear", False), (100, 50, "nearest", True),
+    (101, 37, "linear", True)])
+def test_sweep_full_depth_c3_matches_jax(S, s_hat, interp, per_pixel):
+    """C = 3 at the RGB scene's depth (S = 100, s_hat = 50) and at an odd
+    one, at a small V x U and D: runs the borders cut and whole ones."""
+    vol = _scene(11, 3, S=S, V=2, U=32)
+    V, _, U, _ = vol.shape
+    lo, hi = _bounds(11, V, U, per_pixel)
+    p = dict(interpolation=interp, slope_factor=0.25)
+    want = j_sweep(jnp.asarray(vol), jnp.asarray(lo), jnp.asarray(hi),
+                   DIM_D, jnp.int32(s_hat), JParams(**p))
+    got = sweep_pile(torch.from_numpy(vol), torch.from_numpy(lo),
+                     torch.from_numpy(hi), DIM_D, s_hat, TParams(**p))
+    _compare(got, want)
+
+
 def test_sweep_k_best_matches_jax():
     vol = _scene(4, 1)
     V, S, U, _ = vol.shape

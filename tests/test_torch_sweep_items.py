@@ -8,10 +8,16 @@ the plain version's own intermediate values (``ops/sweep.py``):
     nearest rule one rounded column with weight 0) gives the plain
     version's samples bit for bit;
 (b) the core's item layout, emulated in PyTorch (groups of listed pixels,
-    windows that compact the allowed (pixel, candidate) slots, each item
-    scored with the plain arithmetic, one fold per pixel in candidate
-    order across windows), equals ``sweep_pile`` bitwise in the plain, the
-    pixel and the masked mode, with ``n_allowed = 0`` pixels and ``k_best``.
+    windows that compact the allowed (pixel, candidate) slots, each item's
+    mean shift adding its terms in the core's order, one fold per pixel in
+    candidate order across windows), equals ``sweep_pile`` bitwise in the
+    plain, the pixel and the masked mode, with ``n_allowed = 0`` pixels and
+    ``k_best``.  The core's order: the valid run [s_a, s_b] in s order, in
+    three parts where the thread holds a segment of R samples in registers
+    (``CORE_REGS``; C = 3): the run's samples before the segment, the
+    segment's batches (``CORE_UM``) that meet the run, whose samples
+    outside it read FLT_MAX and add exact zeros, and the run's samples
+    after it.
 """
 
 import numpy as np
@@ -20,15 +26,22 @@ import torch
 
 import oracle
 from remotesensingproject_tpu_torch.config import DepthParams
-from remotesensingproject_tpu_torch.ops.sweep import (_mean_shift,
-                                                      _radiances, _sum_s,
+from remotesensingproject_tpu_torch.ops.sweep import (_radiances, _sum_s,
                                                       sweep_pile)
 from remotesensingproject_tpu_torch.ops.sweep_pallas_perpixel import (
     tile_quantized_bounds)
-from remotesensingproject_tpu_torch.types import DTYPE, f32, round_half_away
+from remotesensingproject_tpu_torch.types import (DTYPE, chan_scale,
+                                                  channel_sumsq, f32,
+                                                  round_half_away)
 
 GMIN, GMAX = -3.0, 4.0
 OUTS = ("best_score", "score_mean", "best_depth", "rbar")
+#: the core's rslf_pc_regs and rslf_pc_um per channel count: the samples
+#: of an item its thread holds in registers and the samples of a mean-shift
+#: batch (tests/test_torch_sweep_core_host.py holds them to the header's);
+#: any other C takes the `any C` item, no registers and one sample at a time
+CORE_REGS = {1: 0, 2: 0, 3: 32, 4: 0}
+CORE_UM = {1: 8, 2: 8, 3: 4, 4: 8}
 
 
 def _scene(C, V=3, S=7, U=40, seed=7):
@@ -169,6 +182,72 @@ def test_core_nearest_positions_match_plain_samples(C, mode, s_hat):
     assert halves > 0  # some positions fell on a half: away from zero
 
 
+def _core_terms(ok, s_hat, R, UM):
+    """The samples the core's mean shift adds, in its order, per item: [N,
+    L] sample indices, -1 for a term that reads FLT_MAX (a register sample
+    outside the run, or past the last one: padding, exact zeros too)."""
+    N, S = ok.shape
+    r0 = max(0, min(s_hat - R // 2, S - R)) & ~3 if R else 0
+    rows = []
+    for okr in ok:
+        run = torch.nonzero(okr).reshape(-1).tolist()
+        t = []
+        if run:
+            s_a, s_b = run[0], run[-1]
+            t += range(s_a, min(s_b + 1, r0))
+            for b in range(0, R, UM):
+                if r0 + b + UM > s_a and r0 + b <= s_b:
+                    t += [s if s_a <= s <= s_b else -1
+                          for s in range(r0 + b, r0 + b + UM)]
+            t += range(max(s_a, r0 + R), s_b + 1)
+        rows.append(t)
+    L = max(1, max(len(t) for t in rows))
+    return torch.tensor([t + [-1] * (L - len(t)) for t in rows])
+
+
+def _core_mean_shift(val, ok, rbar0, s_hat, params):
+    """The core's truncated mean shift of items with samples ``val`` [N, S,
+    C] (garbage where not ``ok``) from r_bar ``rbar0`` [N, C], the plain
+    version's arithmetic over the core's terms.  Returns (sum K of the last
+    step, r_bar, K of the last step [N, S], zeros off the run)."""
+    N, S, C = val.shape
+    terms = _core_terms(ok, s_hat, CORE_REGS.get(C, 0), CORE_UM.get(C, 1))
+    big = torch.full((N, 1, C), np.finfo(np.float32).max)
+    x = torch.cat([val, big], 1)[torch.arange(N)[:, None],
+                                 torch.where(terms < 0, S, terms)]
+    a = f32(chan_scale(C) / (params.kernel_h * params.kernel_h))
+    zero = torch.zeros(())
+    rbar = rbar0
+    k = torch.zeros(terms.shape)
+    for _ in range(params.mean_shift_max_iter):
+        k = torch.clamp_min(1.0 - a * channel_sumsq(x - rbar[:, None]), 0.0)
+        sum_k = _sum_s(k)[:, None]
+        sum_rk = _sum_s(torch.clamp_min(x, 0.0) * k[..., None])
+        rbar = torch.where(sum_k > 0, sum_rk / sum_k, zero)
+    k_s = torch.zeros((N, S + 1)).scatter_(1, torch.where(terms < 0, S, terms),
+                                           k)[:, :S]
+    return _sum_s(k), rbar, k_s
+
+
+def test_core_sentinel_adds_exact_zeros():
+    """A term that reads FLT_MAX has K = 0 and numerator term 0 under the
+    plain arithmetic, for any r_bar of the images' range: it leaves both
+    sums as they are, bit for bit."""
+    big = np.finfo(np.float32).max
+    p = DepthParams()
+    rb = torch.tensor([[0.0, 0.5, 1.0], [1.2, 0.0, 0.3]])
+    for C in (1, 3, 4):
+        a = f32(chan_scale(C) / (p.kernel_h * p.kernel_h))
+        x = torch.full((2, C), big)
+        k = torch.clamp_min(1.0 - a * channel_sumsq(x - rb[:, :1].expand(2, C)),
+                            0.0)
+        assert torch.equal(k, torch.zeros(2))
+        assert torch.equal(torch.clamp_min(x, 0.0) * k[:, None],
+                           torch.zeros((2, C)))
+    s = torch.tensor([0.0, 0.25, 3.5])
+    assert torch.equal(s + torch.zeros(3), s)
+
+
 def _emulate_core(epis, lo, hi, dim_d, s_hat, params, active, plo=None,
                   phi=None, with_k=False, group=4, threads=8, ncap=16):
     """The core's layout in PyTorch: ``group`` listed pixels a block,
@@ -219,21 +298,18 @@ def _emulate_core(epis, lo, hi, dim_d, s_hat, params, active, plo=None,
             val, ok = _core_samples(rows, delta[:, None].expand(-1, U),
                                     s_hat, slope)
             n = torch.arange(len(items))
-            val, ok = val[n, :, ucol][:, :, None], ok[n, :, ucol][:, :, None]
-            zero = torch.zeros(())
-            valraw = torch.where(ok[..., None], val, zero)
-            valpos = torch.where(ok[..., None], val.clamp_min(0.0), zero)
-            r0 = rows[n, s_hat, ucol][:, None]                       # [N,1,C]
-            num, rbar, k_last = _mean_shift(valpos, valraw, ok, r0, params)
+            val, ok = val[n, :, ucol], ok[n, :, ucol]                # [N,S(,C)]
+            r0 = rows[n, s_hat, ucol]                                # [N, C]
+            num, rbar, k_last = _core_mean_shift(val, ok, r0, s_hat, params)
             card = _sum_s(ok.to(DTYPE))
-            score = torch.where(card > 0, num / card, zero)[:, 0]
+            score = torch.where(card > 0, num / card, torch.zeros(()))
             # the fold: each pixel's items of this window, in list order
             for j, r in enumerate(items):
                 st = state[r // dim_d]
                 st["nal"] += 1
                 if score[j] > st["best"]:
-                    st.update(best=score[j], bd=r % dim_d, rb=rbar[j, 0],
-                              k=k_last[j, :, 0])
+                    st.update(best=score[j], bd=r % dim_d, rb=rbar[j],
+                              k=k_last[j])
                 st["sum"] = st["sum"] + score[j]
         fd = torch.tensor(float(dim_d))
         for p, st in enumerate(state):
@@ -276,6 +352,36 @@ def test_item_layout_equals_plain_sweep(C, dim_d, mode):
                                  with_k=True)
     assert windows > -(-int(active.sum()) // 4)   # pixels span windows
     _check(out, sweep_pile(epis, lo, hi, dim_d, 3, params, True), active,
+           True)
+
+
+@pytest.mark.parametrize("S,s_hat", [(100, 50), (61, 13)])
+@pytest.mark.parametrize("mode", ["uniform", "per_pixel"])
+def test_item_layout_c3_full_depth_equals_plain_sweep(S, s_hat, mode):
+    """C = 3 at the RGB scene's depth (S = 100) and at an odd one: runs that
+    start before the register segment and end after it, runs the borders
+    cut, a segment from r0 = 0; bitwise ``sweep_pile`` with ``k_best``."""
+    epis = _scene(3, V=2, S=S, U=24, seed=S)
+    V, _, U, _ = epis.shape
+    lo, hi = _bounds(V, U, mode, seed=S)
+    active = torch.from_numpy(np.random.default_rng(S).uniform(size=(V, U))
+                              < 0.6)
+    params = DepthParams(slope_factor=0.1)
+    R, dim_d = CORE_REGS[3], 5
+    r0 = max(0, min(s_hat - R // 2, S - R)) & ~3
+    spans = cut = 0
+    for d in (0, dim_d - 1):
+        _, ok = _core_samples(epis, _candidate(lo, hi, d, dim_d), s_hat,
+                              f32(params.slope_factor))
+        s = torch.arange(S)[None, :, None]
+        s_a = torch.where(ok, s, S).amin(1)[active]
+        s_b = torch.where(ok, s, -1).amax(1)[active]
+        spans += int(((s_a < r0) & (s_b >= r0 + R)).sum())
+        cut += int((s_b - s_a + 1 < S).sum())
+    assert R > 0 and cut > 0 and (spans > 0 or r0 == 0)
+    out, _ = _emulate_core(epis, lo, hi, dim_d, s_hat, params, active,
+                           with_k=True)
+    _check(out, sweep_pile(epis, lo, hi, dim_d, s_hat, params, True), active,
            True)
 
 
