@@ -62,6 +62,7 @@ from ..ops.sweep_pallas_perpixel import sweep_pile_tiles, \
     tile_quantized_bounds
 from ..ops.sweep_pallas_pixel import MAX_DIM_D, sweep_pile_pixel
 from ..types import DTYPE, f32, resolve_device
+from ..utils import profiling
 from ..utils.plot import coloured_epi_2d, disparity_map_image
 
 
@@ -173,24 +174,25 @@ def _line_confidence(ce_s_v_u: torch.Tensor, depth_v_u: torch.Tensor,
     ``[S, V, U]``, and sums over s by halves (:func:`_sum_halves`): a few
     launches whatever S is, and an order that does not depend on V, so a
     block of rows (a v-split mesh) sums as the whole plane does."""
-    S, V, U = ce_s_v_u.shape
-    dev = ce_s_v_u.device
-    zero = torch.zeros((), dtype=DTYPE, device=dev)
-    ds = float(s_hat) - torch.arange(S, dtype=DTYPE, device=dev)
-    idx = ds[:, None, None] * depth_v_u + torch.arange(U, dtype=DTYPE,
-                                                       device=dev)
-    fi = torch.floor(idx)
-    valid = (fi >= 0) & (torch.ceil(idx) <= U - 1)
-    t = idx.sub_(fi)                                      # idx - floor(idx)
-    i0 = fi.clamp_(0, U - 1).to(torch.int64)
-    a = torch.gather(ce_s_v_u, 2, i0)
-    b = torch.gather(ce_s_v_u, 2, i0.add_(1).clamp_(max=U - 1))
-    del i0, fi
-    ce_i = torch.where(valid, (1.0 - t) * a + t * b, zero)
-    k = k_best_v_s_u.permute(1, 0, 2)                     # [S, V, U]
-    num = _sum_halves(ce_i * k)
-    den = _sum_halves(k)
-    return torch.where(mask_v_u, num / den, zero)
+    with profiling.span("pass.line_conf"):
+        S, V, U = ce_s_v_u.shape
+        dev = ce_s_v_u.device
+        zero = torch.zeros((), dtype=DTYPE, device=dev)
+        ds = float(s_hat) - torch.arange(S, dtype=DTYPE, device=dev)
+        idx = ds[:, None, None] * depth_v_u + torch.arange(U, dtype=DTYPE,
+                                                           device=dev)
+        fi = torch.floor(idx)
+        valid = (fi >= 0) & (torch.ceil(idx) <= U - 1)
+        t = idx.sub_(fi)                                  # idx - floor(idx)
+        i0 = fi.clamp_(0, U - 1).to(torch.int64)
+        a = torch.gather(ce_s_v_u, 2, i0)
+        b = torch.gather(ce_s_v_u, 2, i0.add_(1).clamp_(max=U - 1))
+        del i0, fi
+        ce_i = torch.where(valid, (1.0 - t) * a + t * b, zero)
+        k = k_best_v_s_u.permute(1, 0, 2)                 # [S, V, U]
+        num = _sum_halves(ce_i * k)
+        den = _sum_halves(k)
+        return torch.where(mask_v_u, num / den, zero)
 
 
 def _sum_halves(x: torch.Tensor) -> torch.Tensor:
@@ -251,73 +253,81 @@ def _pass_fn(epis: torch.Tensor, frames: torch.Tensor, state: Depth2DState,
     ``selective_median``, and ``prop_fn(claim, frames, filtered, rbar,
     source_mask, s_hat, payloads)``, which paints in place.  Every merge
     and state update stays here, so there is one pass implementation."""
-    line = params.score_version == "line"
-    if sweep_fn is None:
-        def sweep_fn(act, dmin_v_u, dmax_v_u, sh):
-            return sweep_pass(epis, act, sh, dim_d, params, d_bounds,
-                              dmin_v_u, dmax_v_u, coarse_mode,
-                              with_k_best=line)
-    if median_fn is None:
-        median_fn = selective_median_cuda
-    if prop_fn is None:
-        def prop_fn(claim, frames_, filtered, rbar, source_mask, sh,
-                    payloads):
-            return propagate_cuda(claim, frames_, filtered, rbar,
-                                  source_mask, sh, params.slope_factor,
-                                  params.propagation_epsilon, payloads)
-    ce_p = state.ce[s_hat]
-    mask_p = state.ce_mask[s_hat]
-    zero = torch.zeros((), dtype=DTYPE, device=epis.device)
+    with profiling.span("depth2d.pass"):
+        profiling.count("passes")
+        line = params.score_version == "line"
+        if sweep_fn is None:
+            def sweep_fn(act, dmin_v_u, dmax_v_u, sh):
+                return sweep_pass(epis, act, sh, dim_d, params, d_bounds,
+                                  dmin_v_u, dmax_v_u, coarse_mode,
+                                  with_k_best=line)
+        if median_fn is None:
+            median_fn = selective_median_cuda
+        if prop_fn is None:
+            def prop_fn(claim, frames_, filtered, rbar, source_mask, sh,
+                        payloads):
+                return propagate_cuda(claim, frames_, filtered, rbar,
+                                      source_mask, sh, params.slope_factor,
+                                      params.propagation_epsilon, payloads)
+        ce_p = state.ce[s_hat]
+        mask_p = state.ce_mask[s_hat]
+        zero = torch.zeros((), dtype=DTYPE, device=epis.device)
 
-    # the reference ANDs the edge mask into the claim plane in place
-    # before collecting pixels (core.hpp:510-513)
-    active = mask_p & state.claim[s_hat]
-    state.claim[s_hat] = active
+        # the reference ANDs the edge mask into the claim plane in place
+        # before collecting pixels (core.hpp:510-513)
+        active = mask_p & state.claim[s_hat]
+        state.claim[s_hat] = active
 
-    dmin_v_u = dmax_v_u = None
-    if dmin_s_v_u is not None:
-        dmin_v_u = dmin_s_v_u[s_hat].contiguous()
-        dmax_v_u = dmax_s_v_u[s_hat].contiguous()
-    res = sweep_fn(active, dmin_v_u, dmax_v_u, s_hat)
+        dmin_v_u = dmax_v_u = None
+        if dmin_s_v_u is not None:
+            dmin_v_u = dmin_s_v_u[s_hat].contiguous()
+            dmax_v_u = dmax_s_v_u[s_hat].contiguous()
+        res = sweep_fn(active, dmin_v_u, dmax_v_u, s_hat)
 
-    ok = res.best_score > params.raw_score_threshold
-    good = active & ok
-    bad = active & ~ok
-    ce_new = torch.where(bad, zero, ce_p)
-    mask_new = mask_p & ~bad
-    depth_new = torch.where(good, res.best_depth, state.best_depth[s_hat])
-    conf_new = torch.where(
-        good, ce_new * torch.abs(res.best_score - res.score_mean),
-        state.disp_conf[s_hat])
-    rbar_new = torch.where(good[..., None], res.rbar, state.rbar[s_hat])
-    state.ce[s_hat] = ce_new
-    state.ce_mask[s_hat] = mask_new
-    state.disp_conf[s_hat] = conf_new
-    state.best_depth[s_hat] = depth_new
-    state.rbar[s_hat] = rbar_new
+        with profiling.span("pass.merge"):
+            ok = res.best_score > params.raw_score_threshold
+            good = active & ok
+            bad = active & ~ok
+            ce_new = torch.where(bad, zero, ce_p)
+            mask_new = mask_p & ~bad
+            depth_new = torch.where(good, res.best_depth,
+                                    state.best_depth[s_hat])
+            conf_new = torch.where(
+                good, ce_new * torch.abs(res.best_score - res.score_mean),
+                state.disp_conf[s_hat])
+            rbar_new = torch.where(good[..., None], res.rbar,
+                                   state.rbar[s_hat])
+            state.ce[s_hat] = ce_new
+            state.ce_mask[s_hat] = mask_new
+            state.disp_conf[s_hat] = conf_new
+            state.best_depth[s_hat] = depth_new
+            state.rbar[s_hat] = rbar_new
 
-    # selective median of the s_hat plane, gated by the post-sweep mask;
-    # the filtered values drive propagation but are not stored
-    filtered = median_fn(depth_new, frames[s_hat], mask_new,
-                         params.median_filter_size,
-                         params.median_filter_epsilon)
-    payloads = [(state.best_depth, filtered), (state.disp_conf, conf_new)]
-    if line:
-        # C_l is refreshed only where this pass's sweep succeeded (k_best
-        # is the winning line's there); elsewhere the plane keeps its value
-        lc = torch.where(good, _line_confidence(state.ce, filtered,
-                                                res.k_best, mask_new, s_hat),
-                         state.line_conf[s_hat])
-        state.line_conf[s_hat] = lc
-        source_mask = lc > params.line_score_threshold
-        payloads.append((state.line_conf, lc))
-    elif params.score_version == "disp":
-        source_mask = conf_new > params.disp_score_threshold
-    else:
-        source_mask = mask_new
-    prop_fn(state.claim, frames, filtered, rbar_new, source_mask, s_hat,
-            payloads)
-    return state
+        # selective median of the s_hat plane, gated by the post-sweep mask;
+        # the filtered values drive propagation but are not stored
+        filtered = median_fn(depth_new, frames[s_hat], mask_new,
+                             params.median_filter_size,
+                             params.median_filter_epsilon)
+        payloads = [(state.best_depth, filtered),
+                    (state.disp_conf, conf_new)]
+        if line:
+            # C_l is refreshed only where this pass's sweep succeeded
+            # (k_best is the winning line's there); elsewhere the plane
+            # keeps its value
+            lc = torch.where(good, _line_confidence(state.ce, filtered,
+                                                    res.k_best, mask_new,
+                                                    s_hat),
+                             state.line_conf[s_hat])
+            state.line_conf[s_hat] = lc
+            source_mask = lc > params.line_score_threshold
+            payloads.append((state.line_conf, lc))
+        elif params.score_version == "disp":
+            source_mask = conf_new > params.disp_score_threshold
+        else:
+            source_mask = mask_new
+        prop_fn(state.claim, frames, filtered, rbar_new, source_mask, s_hat,
+                payloads)
+        return state
 
 
 def _as_tensor(x, device: torch.device) -> torch.Tensor:
@@ -412,21 +422,22 @@ class Depth2DComputer:
 
     def initial_state(self) -> Depth2DState:
         """Edge confidence and the zeroed planes before the first pass."""
-        V, S, U, C = self.epis.shape
-        ce_vsu, mask_vsu = edge_confidence_volume(self.epis, self.params)
-        ce = ce_vsu.permute(1, 0, 2).contiguous()
-        ce_mask = mask_vsu.permute(1, 0, 2).contiguous()
+        with profiling.span("depth2d.init"):
+            V, S, U, C = self.epis.shape
+            ce_vsu, mask_vsu = edge_confidence_volume(self.epis, self.params)
+            ce = ce_vsu.permute(1, 0, 2).contiguous()
+            ce_mask = mask_vsu.permute(1, 0, 2).contiguous()
 
-        def zeros(*shape):
-            return torch.zeros(shape, dtype=DTYPE, device=self.device)
+            def zeros(*shape):
+                return torch.zeros(shape, dtype=DTYPE, device=self.device)
 
-        # line_conf is read and written only in line mode
-        lc_shape = (S, V, U) if self.params.score_version == "line" \
-            else (1, 1, 1)
-        return Depth2DState(ce=ce, ce_mask=ce_mask, disp_conf=zeros(S, V, U),
-                            line_conf=zeros(*lc_shape),
-                            best_depth=zeros(S, V, U),
-                            rbar=zeros(S, V, U, C), claim=ce_mask.clone())
+            # line_conf is read and written only in line mode
+            lc_shape = (S, V, U) if self.params.score_version == "line" \
+                else (1, 1, 1)
+            return Depth2DState(
+                ce=ce, ce_mask=ce_mask, disp_conf=zeros(S, V, U),
+                line_conf=zeros(*lc_shape), best_depth=zeros(S, V, U),
+                rbar=zeros(S, V, U, C), claim=ce_mask.clone())
 
     def run(self) -> Depth2DState:
         V, S, U, C = self.epis.shape
@@ -449,11 +460,15 @@ class Depth2DComputer:
                      coarse_mode=self.coarse_mode, **bounds, **hooks)
             self.passes_run += 1
             # a pass on a state with nothing left to claim is a no-op
-            done = self.early_stop and not bool(
-                torch.any(state.ce_mask & state.claim))
+            done = False
+            if self.early_stop:
+                with profiling.span("depth2d.early_stop"):
+                    profiling.count("syncs.early_stop")
+                    done = not bool(torch.any(state.ce_mask & state.claim))
             if self.verbose and (done or self.passes_run % PASS_CHUNK == 0
                                  or self.passes_run == len(schedule)):
                 now = time.perf_counter()
+                profiling.count("syncs.verbose")
                 left = int(torch.sum(state.ce_mask & state.claim))
                 print(f"passes {self.passes_run}/{len(schedule)} "
                       f"(+{now - t_chunk:.1f}s, remaining px {left})")

@@ -31,6 +31,7 @@ from ..config import DEFAULT_PARAMS, DEFAULT_PYRAMID, DepthParams, \
     PyramidParams
 from ..ops.pyramid import bounds_from_parent, downsample_epis, fuse_disp_maps
 from ..types import DTYPE, resolve_device
+from ..utils import profiling
 from ..utils.checkpoint import load_level, save_level
 from ..utils.plot import (ImageConverterUint8, coloured_depth_maps,
                           depth_pyramid_images, side_by_side)
@@ -53,63 +54,66 @@ class FineToCoarse:
                  pass_progress: Optional[bool] = None, device=None,
                  coarse_mode: str = "tile",
                  use_pallas: Optional[bool] = None, mesh=None):
-        if pass_progress is None:
-            pass_progress = verbose
-        if mesh is not None and device is None:
-            device = mesh.device
-        self.device = resolve_device(device)
-        self.mesh = mesh
-        epis = _as_tensor(epis_v_s_u_c, self.device)
-        if epis.dim() == 3:
-            epis = epis[..., None]
-        self.is_uint8 = epis.dtype == torch.uint8
-        raw = epis.to(DTYPE)
-        self.params = params
-        self.pyramid = pyramid
-        self.verbose = verbose
-        self.computers: List[Depth2DComputer] = []
-        self.level_params: List[DepthParams] = []
-        #: (V, S, U) of each level
-        self.level_shapes: List[Tuple[int, int, int]] = []
-        # host seconds of each level's run(), filled by run()
-        self.level_seconds: List[float] = []
+        with profiling.span("ftc.init"):
+            if pass_progress is None:
+                pass_progress = verbose
+            if mesh is not None and device is None:
+                device = mesh.device
+            self.device = resolve_device(device)
+            self.mesh = mesh
+            epis = _as_tensor(epis_v_s_u_c, self.device)
+            if epis.dim() == 3:
+                epis = epis[..., None]
+            self.is_uint8 = epis.dtype == torch.uint8
+            raw = epis.to(DTYPE)
+            self.params = params
+            self.pyramid = pyramid
+            self.verbose = verbose
+            self.computers: List[Depth2DComputer] = []
+            self.level_params: List[DepthParams] = []
+            #: (V, S, U) of each level
+            self.level_shapes: List[Tuple[int, int, int]] = []
+            # host seconds of each level's run(), filled by run() (the
+            # span ``ftc.level`` opens and closes with its clock reads)
+            self.level_seconds: List[float] = []
 
-        start_dim_u = raw.shape[2]
-        max_depth = pyramid.max_pyr_depth
-        if max_depth < 1:
-            max_depth = np.iinfo(np.int32).max
-        level = raw
-        while (level.shape[0] > pyramid.min_spatial_dim
-               and level.shape[2] > pyramid.min_spatial_dim
-               and len(self.computers) < max_depth):
-            lvl_params = params.with_slope_factor(level.shape[2] / start_dim_u)
-            if verbose and (mesh is None or mesh.rank == 0):
-                print(f"level {len(self.computers)}: (v={level.shape[0]}, "
-                      f"u={level.shape[2]}) "
-                      f"slope_factor={lvl_params.slope_factor:.4f}")
-            lvl_input = level.to(torch.uint8) if self.is_uint8 else level
-            if mesh is not None:
-                from ..parallel.driver import ShardedDepth2DComputer
-                self.computers.append(ShardedDepth2DComputer(
-                    lvl_input, dmin, dmax, dim_d, mesh=mesh,
-                    epi_scale_factor=epi_scale_factor, params=lvl_params,
-                    verbose=pass_progress, early_stop=early_stop,
-                    use_pallas=use_pallas, coarse_mode=coarse_mode,
-                    device=self.device))
-            else:
-                self.computers.append(Depth2DComputer(
-                    lvl_input, dmin, dmax, dim_d, epi_scale_factor,
-                    lvl_params, verbose=pass_progress, early_stop=early_stop,
-                    device=self.device, coarse_mode=coarse_mode,
-                    use_pallas=use_pallas))
-            self.level_params.append(lvl_params)
-            self.level_shapes.append(tuple(level.shape[:3]))
-            level = downsample_epis(level)
-            if self.is_uint8:
-                level = torch.clamp(torch.round(level), 0, 255)
+            start_dim_u = raw.shape[2]
+            max_depth = pyramid.max_pyr_depth
+            if max_depth < 1:
+                max_depth = np.iinfo(np.int32).max
+            level = raw
+            while (level.shape[0] > pyramid.min_spatial_dim
+                   and level.shape[2] > pyramid.min_spatial_dim
+                   and len(self.computers) < max_depth):
+                lvl_params = params.with_slope_factor(
+                    level.shape[2] / start_dim_u)
+                if verbose and (mesh is None or mesh.rank == 0):
+                    print(f"level {len(self.computers)}: (v={level.shape[0]}, "
+                          f"u={level.shape[2]}) "
+                          f"slope_factor={lvl_params.slope_factor:.4f}")
+                lvl_input = level.to(torch.uint8) if self.is_uint8 else level
+                if mesh is not None:
+                    from ..parallel.driver import ShardedDepth2DComputer
+                    self.computers.append(ShardedDepth2DComputer(
+                        lvl_input, dmin, dmax, dim_d, mesh=mesh,
+                        epi_scale_factor=epi_scale_factor, params=lvl_params,
+                        verbose=pass_progress, early_stop=early_stop,
+                        use_pallas=use_pallas, coarse_mode=coarse_mode,
+                        device=self.device))
+                else:
+                    self.computers.append(Depth2DComputer(
+                        lvl_input, dmin, dmax, dim_d, epi_scale_factor,
+                        lvl_params, verbose=pass_progress,
+                        early_stop=early_stop, device=self.device,
+                        coarse_mode=coarse_mode, use_pallas=use_pallas))
+                self.level_params.append(lvl_params)
+                self.level_shapes.append(tuple(level.shape[:3]))
+                level = downsample_epis(level)
+                if self.is_uint8:
+                    level = torch.clamp(torch.round(level), 0, 255)
 
-        if pyramid.accept_all_last_scale:
-            self.computers[-1].set_accept_all(True)
+            if pyramid.accept_all_last_scale:
+                self.computers[-1].set_accept_all(True)
 
     def run(self, ckpt_dir: Optional[str] = None):
         """Run all levels fine to coarse, deriving per-pixel bounds.
@@ -121,13 +125,16 @@ class FineToCoarse:
         """
         self.level_seconds = []
         for p, computer in enumerate(self.computers):
-            t0 = time.perf_counter()
-            restored = bool(ckpt_dir) and load_level(ckpt_dir, p, computer)
-            if not restored:
-                computer.run()
-                if ckpt_dir:
-                    save_level(ckpt_dir, p, computer)
-            self.level_seconds.append(time.perf_counter() - t0)
+            with profiling.span("ftc.level"), \
+                    profiling.counting_allocs(self.device):
+                t0 = time.perf_counter()
+                restored = bool(ckpt_dir) and load_level(ckpt_dir, p,
+                                                         computer)
+                if not restored:
+                    computer.run()
+                    if ckpt_dir:
+                        save_level(ckpt_dir, p, computer)
+                self.level_seconds.append(time.perf_counter() - t0)
             if self.verbose and (self.mesh is None or self.mesh.rank == 0):
                 what = "restored" if restored else "done"
                 print(f"level {p} {what} in {self.level_seconds[-1]:.2f}s "
@@ -144,10 +151,11 @@ class FineToCoarse:
     def get_results(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Fused disparity maps + validity at the finest scale
         (rslf_fine_to_coarse.hpp:302-322), ``[S, V, U]`` each."""
-        return fuse_disp_maps(
-            [c.get_depths_s_v_u() for c in self.computers],
-            [c.get_valid_depths_mask_s_v_u() for c in self.computers],
-            self.pyramid.final_median_filter_size)
+        with profiling.span("ftc.fuse"):
+            return fuse_disp_maps(
+                [c.get_depths_s_v_u() for c in self.computers],
+                [c.get_valid_depths_mask_s_v_u() for c in self.computers],
+                self.pyramid.final_median_filter_size)
 
     def get_coloured_depth_maps(self, colormap: str = "jet",
                                 saturate: bool = True) -> np.ndarray:

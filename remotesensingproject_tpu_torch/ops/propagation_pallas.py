@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..types import chan_scale, f32
+from ..utils import profiling
 from . import cuda_build
 from .propagation import propagate
 
@@ -53,47 +54,49 @@ def propagate_cuda(claim_s_v_u: torch.Tensor, frames_s_v_u_c: torch.Tensor,
     ``tile`` is the number of target columns a block of the kernel takes,
     at most :data:`MAX_TILE`; 0 lets the launcher choose, and the result
     does not depend on it."""
-    dev = claim_s_v_u.device
-    if dev.type != "cuda":
-        return propagate(claim_s_v_u, frames_s_v_u_c, depth_f_v_u,
-                         rbar_v_u_c, source_mask_v_u, s_hat, slope_factor,
-                         epsilon, payloads, u_origin)
-    S, V, U = claim_s_v_u.shape
-    C = frames_s_v_u_c.shape[-1]
-    Us = depth_f_v_u.shape[1]
-    if not (Us >= U and 0 <= u_origin <= Us - U):
-        raise ValueError(f"paint: sources {Us} columns wide cannot hold "
-                         f"{U} target columns from column {u_origin}")
-    if not 1 <= len(payloads) <= MAX_PAYLOADS:
-        raise NotImplementedError(
-            f"the CUDA paint carries 1 to {MAX_PAYLOADS} payloads")
-    cuda_build.require("claim", claim_s_v_u, dev, torch.bool)
-    cuda_build.require("frames", frames_s_v_u_c, dev)
-    cuda_build.require("rbar", rbar_v_u_c, dev)
-    for tgt, src in payloads:
-        cuda_build.require("payload target", tgt, dev)
-        cuda_build.require("payload source", src, dev)
+    with profiling.span("paint"):
+        dev = claim_s_v_u.device
+        if dev.type != "cuda":
+            return propagate(claim_s_v_u, frames_s_v_u_c, depth_f_v_u,
+                             rbar_v_u_c, source_mask_v_u, s_hat, slope_factor,
+                             epsilon, payloads, u_origin)
+        S, V, U = claim_s_v_u.shape
+        C = frames_s_v_u_c.shape[-1]
+        Us = depth_f_v_u.shape[1]
+        if not (Us >= U and 0 <= u_origin <= Us - U):
+            raise ValueError(f"paint: sources {Us} columns wide cannot hold "
+                             f"{U} target columns from column {u_origin}")
+        if not 1 <= len(payloads) <= MAX_PAYLOADS:
+            raise NotImplementedError(
+                f"the CUDA paint carries 1 to {MAX_PAYLOADS} payloads")
+        cuda_build.require("claim", claim_s_v_u, dev, torch.bool)
+        cuda_build.require("frames", frames_s_v_u_c, dev)
+        cuda_build.require("rbar", rbar_v_u_c, dev)
+        for tgt, src in payloads:
+            cuda_build.require("payload target", tgt, dev)
+            cuda_build.require("payload source", src, dev)
 
-    if not 0 <= tile <= MAX_TILE:
-        raise ValueError(f"tile must be in [0, {MAX_TILE}]")
-    depth_f_v_u = depth_f_v_u.contiguous()
-    source_mask_v_u = source_mask_v_u.contiguous()
-    cuda_build.require("depth", depth_f_v_u, dev)
-    cuda_build.require("source mask", source_mask_v_u, dev, torch.bool)
-    lib, fn = _paint_fn()
-    pairs = list(payloads) + [(None, None)] * (MAX_PAYLOADS - len(payloads))
-    ptrs = [cuda_build.ptr(t) for tgt, src in pairs for t in (src, tgt)]
-    err = fn(cuda_build.ptr(claim_s_v_u), cuda_build.ptr(frames_s_v_u_c),
-             cuda_build.ptr(depth_f_v_u), cuda_build.ptr(source_mask_v_u),
-             cuda_build.ptr(rbar_v_u_c), S, V, U, C, Us, int(u_origin),
-             int(s_hat),
-             f32(slope_factor), chan_scale(C),
-             float(np.float32(epsilon) ** 2), len(payloads), *ptrs,
-             int(tile),
-             cuda_build.stream_ptr(dev))
-    cuda_build.check(err, lib, "rslf_paint_error_string", "paint")
-    propagate_cuda.launches += 1
-    return claim_s_v_u, tuple(t for t, _ in payloads)
+        if not 0 <= tile <= MAX_TILE:
+            raise ValueError(f"tile must be in [0, {MAX_TILE}]")
+        depth_f_v_u = depth_f_v_u.contiguous()
+        source_mask_v_u = source_mask_v_u.contiguous()
+        cuda_build.require("depth", depth_f_v_u, dev)
+        cuda_build.require("source mask", source_mask_v_u, dev, torch.bool)
+        lib, fn = _paint_fn()
+        pairs = list(payloads) + [(None, None)] * (MAX_PAYLOADS
+                                                   - len(payloads))
+        ptrs = [cuda_build.ptr(t) for tgt, src in pairs for t in (src, tgt)]
+        err = fn(cuda_build.ptr(claim_s_v_u), cuda_build.ptr(frames_s_v_u_c),
+                 cuda_build.ptr(depth_f_v_u), cuda_build.ptr(source_mask_v_u),
+                 cuda_build.ptr(rbar_v_u_c), S, V, U, C, Us, int(u_origin),
+                 int(s_hat),
+                 f32(slope_factor), chan_scale(C),
+                 float(np.float32(epsilon) ** 2), len(payloads), *ptrs,
+                 int(tile),
+                 cuda_build.stream_ptr(dev))
+        cuda_build.check(err, lib, "rslf_paint_error_string", "paint")
+        propagate_cuda.launches += 1
+        return claim_s_v_u, tuple(t for t, _ in payloads)
 
 
 #: kernel launches since the count was last set to 0

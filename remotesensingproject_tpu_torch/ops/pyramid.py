@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..types import DTYPE
+from ..utils import profiling
 from .median import median_blur
 
 #: OpenCV getGaussianKernel(7, sigma<=0) fixed table.
@@ -120,46 +121,51 @@ def bounds_from_parent(depth_up_s_v_u: torch.Tensor,
     (d_left, d_right) pair only if both exist, and the bounds become the
     min / max over the contributed pairs (rslf_fine_to_coarse.hpp:202-294).
     """
-    S, Vu, Uu = depth_up_s_v_u.shape
-    _, Vd, Ud = dmin_down_s_v_u.shape
-    dev = depth_up_s_v_u.device
-    u_idx = torch.arange(Uu, device=dev)
+    with profiling.span("ftc.bounds"):
+        S, Vu, Uu = depth_up_s_v_u.shape
+        _, Vd, Ud = dmin_down_s_v_u.shape
+        dev = depth_up_s_v_u.device
+        u_idx = torch.arange(Uu, device=dev)
 
-    li = torch.where(mask_up_s_v_u & (u_idx >= 1), u_idx, -1)
-    lcum = torch.cummax(li, dim=2).values
-    left = torch.cat([torch.full((S, Vu, 1), -1, device=dev,
-                                 dtype=lcum.dtype), lcum[:, :, :-1]], dim=2)
-    ri = torch.where(mask_up_s_v_u, u_idx, Uu)
-    rcum = torch.flip(torch.cummin(torch.flip(ri, [2]), dim=2).values, [2])
-    right = torch.cat([rcum[:, :, 1:], torch.full((S, Vu, 1), Uu, device=dev,
-                                                  dtype=rcum.dtype)], dim=2)
+        li = torch.where(mask_up_s_v_u & (u_idx >= 1), u_idx, -1)
+        lcum = torch.cummax(li, dim=2).values
+        left = torch.cat([torch.full((S, Vu, 1), -1, device=dev,
+                                     dtype=lcum.dtype), lcum[:, :, :-1]],
+                         dim=2)
+        ri = torch.where(mask_up_s_v_u, u_idx, Uu)
+        rcum = torch.flip(torch.cummin(torch.flip(ri, [2]), dim=2).values, [2])
+        right = torch.cat([rcum[:, :, 1:],
+                           torch.full((S, Vu, 1), Uu, device=dev,
+                                      dtype=rcum.dtype)], dim=2)
 
-    dl = torch.gather(depth_up_s_v_u, 2, torch.clamp(left, 0, Uu - 1))
-    dr = torch.gather(depth_up_s_v_u, 2, torch.clamp(right, 0, Uu - 1))
-    pair_ok = (left >= 1) & (right < Uu)
-    pmin = torch.minimum(dl, dr)
-    pmax = torch.maximum(dl, dr)
+        dl = torch.gather(depth_up_s_v_u, 2, torch.clamp(left, 0, Uu - 1))
+        dr = torch.gather(depth_up_s_v_u, 2, torch.clamp(right, 0, Uu - 1))
+        pair_ok = (left >= 1) & (right < Uu)
+        pmin = torch.minimum(dl, dr)
+        pmax = torch.maximum(dl, dr)
 
-    v_up = np.minimum(2 * np.arange(Vd), Vu - 1)
-    u_up = torch.as_tensor(np.minimum(2 * np.arange(Ud), Uu - 1), device=dev)
-    v_up2 = v_up + 1
-    row2 = torch.as_tensor(v_up2 < Vu, device=dev)
-    v_up = torch.as_tensor(v_up, device=dev)
-    v_up2c = torch.as_tensor(np.minimum(v_up2, Vu - 1), device=dev)
+        v_up = np.minimum(2 * np.arange(Vd), Vu - 1)
+        u_up = torch.as_tensor(np.minimum(2 * np.arange(Ud), Uu - 1),
+                               device=dev)
+        v_up2 = v_up + 1
+        row2 = torch.as_tensor(v_up2 < Vu, device=dev)
+        v_up = torch.as_tensor(v_up, device=dev)
+        v_up2c = torch.as_tensor(np.minimum(v_up2, Vu - 1), device=dev)
 
-    def at(arr, rows):
-        return torch.index_select(torch.index_select(arr, 1, rows), 2, u_up)
+        def at(arr, rows):
+            return torch.index_select(torch.index_select(arr, 1, rows), 2,
+                                      u_up)
 
-    ok1 = at(pair_ok, v_up)
-    ok2 = at(pair_ok, v_up2c) & row2[None, :, None]
-    inf = torch.tensor(float("inf"), dtype=DTYPE, device=dev)
-    new_dmin = torch.minimum(torch.where(ok1, at(pmin, v_up), inf),
-                             torch.where(ok2, at(pmin, v_up2c), inf))
-    new_dmax = torch.maximum(torch.where(ok1, at(pmax, v_up), -inf),
-                             torch.where(ok2, at(pmax, v_up2c), -inf))
-    any_pair = ok1 | ok2
-    return (torch.where(any_pair, new_dmin, dmin_down_s_v_u),
-            torch.where(any_pair, new_dmax, dmax_down_s_v_u))
+        ok1 = at(pair_ok, v_up)
+        ok2 = at(pair_ok, v_up2c) & row2[None, :, None]
+        inf = torch.tensor(float("inf"), dtype=DTYPE, device=dev)
+        new_dmin = torch.minimum(torch.where(ok1, at(pmin, v_up), inf),
+                                 torch.where(ok2, at(pmin, v_up2c), inf))
+        new_dmax = torch.maximum(torch.where(ok1, at(pmax, v_up), -inf),
+                                 torch.where(ok2, at(pmax, v_up2c), -inf))
+        any_pair = ok1 | ok2
+        return (torch.where(any_pair, new_dmin, dmin_down_s_v_u),
+                torch.where(any_pair, new_dmax, dmax_down_s_v_u))
 
 
 def fuse_disp_maps(disp_pyr: List[torch.Tensor],

@@ -32,6 +32,7 @@ import torch
 
 from ..config import DepthParams
 from ..types import DTYPE, chan_scale, div, f32
+from ..utils import profiling
 from . import cuda_build
 from .sweep import SweepResult, _mean_shift, _sum_s
 
@@ -192,7 +193,8 @@ def sweep_pile_rows(epis_v_s_u_c: torch.Tensor, dmin: float, dmax: float,
         the TPU wrapper takes them.
       active_v_u: optional ``[V, U]`` bool; only these pixels are swept.
       work_count: optional int64 CUDA tensor of one element; the kernel
-        adds the valid samples times mean-shift steps it ran.
+        adds the valid samples times mean-shift steps it ran.  None while
+        tracing: the counter ``sweep.sample_steps`` (``utils.profiling``).
 
     Returns:
       SweepResult; on CUDA zeros at the pixels not swept.
@@ -208,27 +210,32 @@ def sweep_pile_rows(epis_v_s_u_c: torch.Tensor, dmin: float, dmax: float,
                                 s_hat, params, with_k_best)
 
     cuda_build.require("epis", epis_v_s_u_c, dev)
+    if work_count is None:
+        work_count = profiling.device_counter("sweep.sample_steps", dev)
     if work_count is not None:
         cuda_build.require("work_count", work_count, dev, torch.int64)
-    out = sweep_outputs(V, S, U, C, with_k_best, dev)
-    mask = activity_mask(V, U, row_active, active_v_u, dev)
-    act = torch.nonzero(mask.reshape(-1)).reshape(-1).to(torch.int32)
-    n_act = act.numel()
+    with profiling.span("sweep.compact"):
+        out = sweep_outputs(V, S, U, C, with_k_best, dev)
+        mask = activity_mask(V, U, row_active, active_v_u, dev)
+        act = torch.nonzero(mask.reshape(-1)).reshape(-1).to(torch.int32)
+        profiling.count("syncs.sweep_compact")
+        n_act = act.numel()
     if n_act == 0:
         return out
 
-    # the kernel computes the grid itself, operation for operation as
-    # candidate_grid does
-    lib, fn, _ = _rows_fn()
-    a_coef = f32(chan_scale(C) / (params.kernel_h * params.kernel_h))
-    p = cuda_build.ptr
-    err = fn(p(epis_v_s_u_c), S, U, C, p(act), n_act, f32(dmin), f32(dmax),
-             dim_d, int(s_hat), f32(params.slope_factor), a_coef,
-             params.mean_shift_max_iter, p(out.best_score),
-             p(out.score_mean), p(out.best_depth), p(out.rbar),
-             p(out.k_best), p(work_count), cuda_build.stream_ptr(dev))
-    cuda_build.check(err, lib, "rslf_sweep_rows_error_string", "sweep_rows",
-                     no_fit=f"S={S}, C={C}")
+    with profiling.span("sweep.launch"):
+        # the kernel computes the grid itself, operation for operation as
+        # candidate_grid does
+        lib, fn, _ = _rows_fn()
+        a_coef = f32(chan_scale(C) / (params.kernel_h * params.kernel_h))
+        p = cuda_build.ptr
+        err = fn(p(epis_v_s_u_c), S, U, C, p(act), n_act, f32(dmin),
+                 f32(dmax), dim_d, int(s_hat), f32(params.slope_factor),
+                 a_coef, params.mean_shift_max_iter, p(out.best_score),
+                 p(out.score_mean), p(out.best_depth), p(out.rbar),
+                 p(out.k_best), p(work_count), cuda_build.stream_ptr(dev))
+        cuda_build.check(err, lib, "rslf_sweep_rows_error_string",
+                         "sweep_rows", no_fit=f"S={S}, C={C}")
     sweep_pile_rows.launches += 1
     return out
 

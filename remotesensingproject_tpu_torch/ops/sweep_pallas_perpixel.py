@@ -31,6 +31,7 @@ import torch
 
 from ..config import DepthParams
 from ..types import DTYPE, chan_scale, f32
+from ..utils import profiling
 from . import cuda_build
 from .sweep import SweepResult, sweep_pile
 from .sweep_pallas import CHUNK, activity_mask, sweep_outputs
@@ -110,7 +111,8 @@ def sweep_pile_tiles(epis_v_s_u_c: torch.Tensor, dmin_v_u: torch.Tensor,
       pdmin_v_u / pdmax_v_u: optional ``[V, U]`` allowed ranges (the
         masked mode).
       work_count: optional int64 CUDA tensor of one element; the kernel
-        adds the valid samples times mean-shift steps it ran.
+        adds the valid samples times mean-shift steps it ran.  None while
+        tracing: the counter ``sweep.sample_steps`` (``utils.profiling``).
       u_valid: optional (lo, hi) window of valid sample columns (default
         (0, U - 1)); the columns read stay clamped to the volume.
 
@@ -130,29 +132,34 @@ def sweep_pile_tiles(epis_v_s_u_c: torch.Tensor, dmin_v_u: torch.Tensor,
         planes += [("pdmin_v_u", pdmin_v_u), ("pdmax_v_u", pdmax_v_u)]
     for name, t in planes:
         cuda_build.require(name, t, dev)
+    if work_count is None:
+        work_count = profiling.device_counter("sweep.sample_steps", dev)
     if work_count is not None:
         cuda_build.require("work_count", work_count, dev, torch.int64)
-    out = sweep_outputs(V, S, U, C, with_k_best, dev)
-    mask = activity_mask(V, U, tile_active, active_v_u, dev)
-    act = torch.nonzero(mask.reshape(-1)).reshape(-1).to(torch.int32)
-    n_act = act.numel()
+    with profiling.span("sweep.compact"):
+        out = sweep_outputs(V, S, U, C, with_k_best, dev)
+        mask = activity_mask(V, U, tile_active, active_v_u, dev)
+        act = torch.nonzero(mask.reshape(-1)).reshape(-1).to(torch.int32)
+        profiling.count("syncs.sweep_compact")
+        n_act = act.numel()
     if n_act == 0:
         return out
 
-    lo, hi = (0, U - 1) if u_valid is None else u_valid
-    lib, fn, _ = _tiles_fn()
-    a_coef = f32(chan_scale(C) / (params.kernel_h * params.kernel_h))
-    p = cuda_build.ptr
-    err = fn(p(epis_v_s_u_c), S, U, C, p(act), n_act, p(dmin_v_u),
-             p(dmax_v_u), p(pdmin_v_u), p(pdmax_v_u), dim_d, int(s_hat),
-             f32(params.slope_factor), a_coef, params.mean_shift_max_iter,
-             int(params.interpolation == "nearest"), int(lo), int(hi),
-             p(out.best_score),
-             p(out.score_mean),
-             p(out.best_depth), p(out.rbar), p(out.k_best), p(work_count),
-             cuda_build.stream_ptr(dev))
-    cuda_build.check(err, lib, "rslf_sweep_tiles_error_string",
-                     "sweep_tiles", no_fit=f"S={S}, C={C}")
+    with profiling.span("sweep.launch"):
+        lo, hi = (0, U - 1) if u_valid is None else u_valid
+        lib, fn, _ = _tiles_fn()
+        a_coef = f32(chan_scale(C) / (params.kernel_h * params.kernel_h))
+        p = cuda_build.ptr
+        err = fn(p(epis_v_s_u_c), S, U, C, p(act), n_act, p(dmin_v_u),
+                 p(dmax_v_u), p(pdmin_v_u), p(pdmax_v_u), dim_d, int(s_hat),
+                 f32(params.slope_factor), a_coef, params.mean_shift_max_iter,
+                 int(params.interpolation == "nearest"), int(lo), int(hi),
+                 p(out.best_score),
+                 p(out.score_mean),
+                 p(out.best_depth), p(out.rbar), p(out.k_best),
+                 p(work_count), cuda_build.stream_ptr(dev))
+        cuda_build.check(err, lib, "rslf_sweep_tiles_error_string",
+                         "sweep_tiles", no_fit=f"S={S}, C={C}")
     sweep_pile_tiles.launches += 1
     return out
 

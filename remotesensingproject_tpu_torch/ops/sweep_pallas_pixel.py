@@ -29,6 +29,7 @@ import torch
 
 from ..config import DepthParams
 from ..types import DTYPE, chan_scale, f32
+from ..utils import profiling
 from . import cuda_build
 from .sweep import SweepResult, sweep_pile
 from .sweep_pallas import sweep_outputs
@@ -100,7 +101,8 @@ def sweep_pile_pixel(epis_v_s_u_c: torch.Tensor, dmin: float, dmax: float,
         candidate's kernel values (line mode).
       work_count: optional int64 CUDA tensor of one element; the kernel
         adds the valid samples times mean-shift steps it ran, the count
-        its arithmetic bound is computed from.
+        its arithmetic bound is computed from.  None while tracing: the
+        counter ``sweep.sample_steps`` (``utils.profiling``).
       u_valid: optional (lo, hi) window of valid sample columns (default
         (0, U - 1)); the columns read stay clamped to the volume.
 
@@ -132,29 +134,35 @@ def sweep_pile_pixel(epis_v_s_u_c: torch.Tensor, dmin: float, dmax: float,
     if per_pixel:
         cuda_build.require("dmin_v_u", dmin_v_u, dev)
         cuda_build.require("dmax_v_u", dmax_v_u, dev)
+    if work_count is None:
+        work_count = profiling.device_counter("sweep.sample_steps", dev)
     if work_count is not None:
         cuda_build.require("work_count", work_count, dev, torch.int64)
 
-    out = sweep_outputs(V, S, U, C, with_k_best, dev)
-    act = torch.nonzero(active_v_u.reshape(-1)).reshape(-1).to(torch.int32)
-    n_act = act.numel()
+    with profiling.span("sweep.compact"):
+        out = sweep_outputs(V, S, U, C, with_k_best, dev)
+        act = torch.nonzero(active_v_u.reshape(-1)).reshape(-1).to(
+            torch.int32)
+        profiling.count("syncs.sweep_compact")
+        n_act = act.numel()
     if n_act == 0:
         return out
 
-    lo, hi = (0, U - 1) if u_valid is None else u_valid
-    lib, fn, _ = _sweep_fn()
-    a_coef = f32(chan_scale(C) / (params.kernel_h * params.kernel_h))
-    p = cuda_build.ptr
-    err = fn(p(epis_v_s_u_c), S, U, C, p(act), n_act,
-             p(dmin_v_u if per_pixel else None),
-             p(dmax_v_u if per_pixel else None), f32(dmin), f32(dmax),
-             dim_d, int(s_hat), f32(params.slope_factor), a_coef, iters,
-             int(params.interpolation == "nearest"), int(lo), int(hi),
-             p(out.best_score),
-             p(out.score_mean), p(out.best_depth), p(out.rbar),
-             p(out.k_best), p(work_count), cuda_build.stream_ptr(dev))
-    cuda_build.check(err, lib, "rslf_sweep_pixel_error_string",
-                     "sweep_pixel", no_fit=f"S={S}, C={C}")
+    with profiling.span("sweep.launch"):
+        lo, hi = (0, U - 1) if u_valid is None else u_valid
+        lib, fn, _ = _sweep_fn()
+        a_coef = f32(chan_scale(C) / (params.kernel_h * params.kernel_h))
+        p = cuda_build.ptr
+        err = fn(p(epis_v_s_u_c), S, U, C, p(act), n_act,
+                 p(dmin_v_u if per_pixel else None),
+                 p(dmax_v_u if per_pixel else None), f32(dmin), f32(dmax),
+                 dim_d, int(s_hat), f32(params.slope_factor), a_coef, iters,
+                 int(params.interpolation == "nearest"), int(lo), int(hi),
+                 p(out.best_score),
+                 p(out.score_mean), p(out.best_depth), p(out.rbar),
+                 p(out.k_best), p(work_count), cuda_build.stream_ptr(dev))
+        cuda_build.check(err, lib, "rslf_sweep_pixel_error_string",
+                         "sweep_pixel", no_fit=f"S={S}, C={C}")
     sweep_pile_pixel.launches += 1
     return out
 

@@ -1,4 +1,4 @@
-"""Checkpoint / resume, pass progress and tracing.
+"""Checkpoint / resume and pass progress.
 
 A port checkpoint round trip is bitwise; a directory written by the JAX
 package (its XLA path) resumes in the port, wholly or from a level on,
@@ -7,9 +7,6 @@ exact, fused depth within 1e-4); a level saved with scalar bounds resets
 a reused computer's bound planes.  ``early_stop=False`` and ``verbose``
 give the JAX package's pass counts and progress lines."""
 
-import glob
-import io
-import json
 import os
 import re
 
@@ -25,7 +22,7 @@ from remotesensingproject_tpu.models import depth2d as jd2
 from remotesensingproject_tpu.models.fine_to_coarse import FineToCoarse as JFTC
 from remotesensingproject_tpu_torch import (Depth2DComputer, DepthParams,
                                             FineToCoarse, PyramidParams)
-from remotesensingproject_tpu_torch.utils import checkpoint, profiling
+from remotesensingproject_tpu_torch.utils import checkpoint
 
 FIELDS = ("ce", "ce_mask", "disp_conf", "line_conf", "best_depth", "claim")
 
@@ -191,29 +188,3 @@ def test_fine_to_coarse_pass_progress(capsys):
                  pyramid=PyramidParams(min_spatial_dim=10)).run()
     out = capsys.readouterr().out
     assert "level 1 done" in out and _progress(out)[0]
-
-
-def test_timer_progress_bar_and_device_trace(tmp_path):
-    timer = profiling.Timer()
-    for _ in range(2):
-        with timer.scope("sweep"):
-            torch.ones(8).sum()
-    assert timer.counts == {"sweep": 2} and timer.totals["sweep"] >= 0
-    out = io.StringIO()
-    timer.report(file=out)
-    bar = profiling.ProgressBar(4, file=out)
-    for _ in range(4):
-        bar.step()
-    bar.done()
-    out = out.getvalue()
-    assert "sweep" in out and "x2" in out and "100%" in out
-    with profiling.device_trace(None):
-        pass
-    with profiling.device_trace(str(tmp_path / "trace")):
-        Depth2DComputer(_vol(S=3, V=12, U=16), -1.0, 1.5, 3,
-                        device="cpu").run()
-    files = glob.glob(str(tmp_path / "trace" / "*.pt.trace.json"))
-    assert len(files) == 1
-    with open(files[0]) as f:
-        events = json.load(f)["traceEvents"]
-    assert any(e.get("name", "").startswith("aten::") for e in events)
