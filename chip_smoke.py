@@ -32,7 +32,10 @@ Phases, one line each (details on further lines):
    pyramid (beside an empty kernel's launch, the floor) and at a generic
    odd and even window size; the paint with three payloads (line mode:
    depth, disp_conf, line_conf; sources C_l > threshold) at a first and a
-   late pass, beside the line confidence's own time.  Every kernel bitwise;
+   late pass; the line confidence at the good pixels of the first level-0
+   pass and of a late one (nvcc's report of it must show no stack frame),
+   timed beside the plain version over the post-sweep mask.  Every kernel
+   bitwise;
    each kernel's time, its plain version's, and the least time the card
    could take (``bound_ms``);
 3. the full fine-to-coarse pipeline on that scene through
@@ -397,6 +400,8 @@ LEVEL0_PLANES = ("ce", "ce_mask", "disp_conf", "best_depth", "claim")
 
 def wrappers_of():
     """The kernel wrappers, by kernel name."""
+    from remotesensingproject_tpu_torch.ops.line_confidence import \
+        line_confidence_cuda
     from remotesensingproject_tpu_torch.ops.median_pallas import \
         selective_median_cuda
     from remotesensingproject_tpu_torch.ops.propagation_pallas import \
@@ -409,7 +414,8 @@ def wrappers_of():
         sweep_pile_pixel
     return {"sweep_pixel": sweep_pile_pixel, "sweep_rows": sweep_pile_rows,
             "sweep_tiles": sweep_pile_tiles,
-            "median": selective_median_cuda, "paint": propagate_cuda}
+            "median": selective_median_cuda, "paint": propagate_cuda,
+            "line_conf": line_confidence_cuda}
 
 
 def sharded_rank(rank, out, with_2d):
@@ -517,8 +523,8 @@ def main() -> int:
         from remotesensingproject_tpu_torch.config import DEFAULT_PARAMS
         from remotesensingproject_tpu_torch.models.depth1d import (
             Depth1DComputer, depth1d_result)
-        from remotesensingproject_tpu_torch.models.depth2d import (
-            Depth2DComputer, _line_confidence)
+        from remotesensingproject_tpu_torch.models.depth2d import \
+            Depth2DComputer
         from remotesensingproject_tpu_torch.models.fine_to_coarse import \
             FineToCoarse
         from remotesensingproject_tpu_torch.models.pile import \
@@ -526,6 +532,8 @@ def main() -> int:
         from remotesensingproject_tpu_torch.native import loader as \
             native_loader
         from remotesensingproject_tpu_torch.ops import cuda_build
+        from remotesensingproject_tpu_torch.ops.line_confidence import (
+            line_confidence, line_confidence_cuda)
         from remotesensingproject_tpu_torch.ops.median import \
             selective_median
         from remotesensingproject_tpu_torch.ops import median_pallas
@@ -592,6 +600,10 @@ def main() -> int:
                 median5.append(fn)
                 if re.findall(r"(\d+) bytes", ln) != ["0", "0", "0"]:
                     failures.append(f"{fn}: {ln}")
+            # the line confidence's pending sums must stay in registers
+            if fn == "line_conf_kernel" and "stack" in ln and re.findall(
+                    r"(\d+) bytes", ln) != ["0", "0", "0"]:
+                failures.append(f"{fn}: {ln}")
     if not median5:
         failures.append("no ptxas report of the median's SIZE = 5 kernels")
     for fn, (n_ins, n_mm, n_after) in sass_summary(
@@ -955,24 +967,50 @@ def main() -> int:
                 (mask[:64] & late((64, U), 0.01)).contiguous(),
                 conf[:64].contiguous(), tile=200)
     del claim4, args4
-    # line mode: C_l of the pass from the sweep's k_best (plain PyTorch,
-    # timed here for its share of a pass), its sources, the third payload
+    # line mode: C_l of the pass from the sweep's k_best, the kernel at the
+    # good pixels (as the pass computes it) against the plain version there,
+    # bitwise, and timed beside the plain version over the post-sweep mask
+    # (the pass's C_l before the kernel), at the first level-0 pass and at
+    # a late one (a few per cent of its good pixels); its sources, the
+    # third payload
     ce_line = state.ce.clone()
     ce_line[s_hat] = torch.where(active & ~good, torch.zeros_like(
         ce_line[s_hat]), ce_line[s_hat])
+    k_line = res_k.k_best
 
-    def line_conf():
-        return torch.where(good, _line_confidence(ce_line, filtered,
-                                                  res_k.k_best, mask, s_hat),
-                           torch.zeros_like(filtered)).contiguous()
+    def check_line(tag, at):
+        def run():
+            return line_confidence_cuda(ce_line, filtered, k_line, at, s_hat)
 
-    lc = line_conf()
-    lc_ms = time_ms(torch, line_conf, reps=5)
+        got = run()
+        want = line_confidence(ce_line, filtered, k_line, at, s_hat)
+        nan = torch.isnan(want)
+        same = (torch.equal(torch.isnan(got), nan)
+                and torch.equal(got[~nan].view(torch.int32),
+                                want[~nan].view(torch.int32)))
+        if not same:
+            failures.append(f"line confidence {tag} not bitwise equal")
+        ms = device_ms(torch, run)
+        call_ms = time_ms(torch, run, reps=5)
+        plain_ms = time_ms(torch, lambda: line_confidence(
+            ce_line, filtered, k_line, mask, s_hat), reps=3)
+        n_at = int(at.sum())
+        bms, by = bound(n_at * S * (4 + 8) + V * U * 10, n_at * S * 10)
+        print(f"  line confidence {tag}: bitwise {same}, {n_at} px of "
+              f"{int(mask.sum())} in the post-sweep mask, kernel {ms:.4f} "
+              f"ms a launch back to back ({call_ms:.4f} ms one call on the "
+              f"host clock), plain {plain_ms:.3f} ms over the post-sweep "
+              f"mask, bound {bms:.4f} ms by {by}")
+        return dict(max_abs_err=0.0 if same else float("nan"), ms=ms,
+                    plain_ms=plain_ms, bound_ms=bms, bound_by=by), got
+
+    records["line_conf"], lc = check_line("first level-0 pass", good)
+    modes["line_conf"] = {"late pass": check_line(
+        "late pass", (good & late((V, U), 0.03)).contiguous())[0]}
     lc_src = (lc > params.line_score_threshold).contiguous()
-    print(f"  line confidence (plain PyTorch, one batched gather over "
-          f"[S, V, U]): {lc_ms:.3f} ms at the first level-0 pass, "
-          f"{int(lc_src.sum())} sources of {int(good.sum())} swept px")
-    del ce_line, res_k
+    print(f"  line confidence sources: {int(lc_src.sum())} of "
+          f"{int(good.sum())} swept px")
+    del ce_line, res_k, k_line
     modes["paint"]["three payloads"], _ = check_paint(
         "C=1 line mode, three payloads", claim0, frames, filtered, rbar,
         lc_src, conf, lc=lc)
@@ -1210,7 +1248,8 @@ def main() -> int:
             (8, "fast mode", fast_params, JAX_FAST,
              (ref["rmse_px"] + MARGIN_PX, ref["p90_px"] + MARGIN_PX))):
         (f, fused_, validity_), wall, launches = run_path(
-            f"phase {phase}", ("sweep_pixel", "median", "paint"),
+            f"phase {phase}", ("sweep_pixel", "median", "paint")
+            + (("line_conf",) if phase == 7 else ()),
             lambda: run_ftc(vol, p))
         peak = torch.cuda.max_memory_allocated() / 2**30
         rmse_, p90_, _ = quality(fused_, mask1)
@@ -1804,6 +1843,9 @@ def main() -> int:
         "sweep_tiles": (
             "remotesensingproject_tpu_torch/csrc/sweep_tiles.cu",
             "remotesensingproject_tpu/ops/sweep_pallas_perpixel.py:43"),
+        "line_conf": ("remotesensingproject_tpu_torch/csrc/line_conf.cu",
+                      "no TPU kernel: the JAX package's XLA, "
+                      "remotesensingproject_tpu/models/depth2d.py:68"),
     }
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=total[k], library_ms=None, **records[k],

@@ -19,8 +19,9 @@ rslf_depth_computation_core.hpp:901-1133):
   Nearest interpolation, which the JAX package sweeps on its XLA path, goes
   to the pixel kernel or the tile kernel on each pixel's own grid.
 * line mode (``score_version="line"``): the line confidence C_l of the
-  swept pixels, from the sweep's ``k_best``, gates propagation and is
-  painted as a third payload.
+  swept pixels, from the sweep's ``k_best`` (a CUDA kernel that computes
+  those pixels alone), gates propagation and is painted as a third
+  payload.
 
 Reference quirks kept on purpose:
 * the median-filtered disparities drive propagation but are not written
@@ -51,6 +52,7 @@ import torch
 
 from ..config import DEFAULT_PARAMS, DepthParams
 from ..ops.edge_confidence import edge_confidence_volume
+from ..ops.line_confidence import line_confidence_cuda
 from ..ops.median import selective_median
 from ..ops.median_pallas import selective_median_cuda
 from ..ops.normalize import normalize_volume
@@ -166,45 +168,12 @@ def _line_confidence(ce_s_v_u: torch.Tensor, depth_v_u: torch.Tensor,
                      k_best_v_s_u: torch.Tensor, mask_v_u: torch.Tensor,
                      s_hat: int) -> torch.Tensor:
     """Line confidence C_l = sum_s C_e(I) K / sum_s K along each pixel's
-    winning line (JAX ``depth2d.py:68-135``, reference core.hpp:1032-1081),
-    0 outside ``mask_v_u``.  I = (s_hat - s) * d + u with the filtered depth
-    d; the reference's index leaves out ``slope_factor``, and so does this
-    one.  C_e is interpolated linearly along u; a sample counts iff
-    floor(I) >= 0 and ceil(I) <= U - 1.  One batched gather over
-    ``[S, V, U]``, and sums over s by halves (:func:`_sum_halves`): a few
-    launches whatever S is, and an order that does not depend on V, so a
-    block of rows (a v-split mesh) sums as the whole plane does."""
+    winning line, 0 outside ``mask_v_u``: the CUDA kernel on a CUDA tensor,
+    which computes only the pixels of the mask, else the plain version
+    (``ops/line_confidence.py``)."""
     with profiling.span("pass.line_conf"):
-        S, V, U = ce_s_v_u.shape
-        dev = ce_s_v_u.device
-        zero = torch.zeros((), dtype=DTYPE, device=dev)
-        ds = float(s_hat) - torch.arange(S, dtype=DTYPE, device=dev)
-        idx = ds[:, None, None] * depth_v_u + torch.arange(U, dtype=DTYPE,
-                                                           device=dev)
-        fi = torch.floor(idx)
-        valid = (fi >= 0) & (torch.ceil(idx) <= U - 1)
-        t = idx.sub_(fi)                                  # idx - floor(idx)
-        i0 = fi.clamp_(0, U - 1).to(torch.int64)
-        a = torch.gather(ce_s_v_u, 2, i0)
-        b = torch.gather(ce_s_v_u, 2, i0.add_(1).clamp_(max=U - 1))
-        del i0, fi
-        ce_i = torch.where(valid, (1.0 - t) * a + t * b, zero)
-        k = k_best_v_s_u.permute(1, 0, 2)                 # [S, V, U]
-        num = _sum_halves(ce_i * k)
-        den = _sum_halves(k)
-        return torch.where(mask_v_u, num / den, zero)
-
-
-def _sum_halves(x: torch.Tensor) -> torch.Tensor:
-    """Sum over axis 0 by halves: x[:h] + x[h:2h], the odd last slice
-    carried, until one is left.  Every add is elementwise, so the result
-    does not depend on the other axes' extents (``torch.sum``'s order
-    does)."""
-    while x.shape[0] > 1:
-        h = x.shape[0] // 2
-        y = x[:h] + x[h:2 * h]
-        x = torch.cat([y, x[2 * h:]]) if x.shape[0] % 2 else y
-    return x[0]
+        return line_confidence_cuda(ce_s_v_u, depth_v_u, k_best_v_s_u,
+                                    mask_v_u, s_hat)
 
 
 def plain_stages(epis: torch.Tensor, dim_d: int, params: DepthParams,
@@ -312,11 +281,11 @@ def _pass_fn(epis: torch.Tensor, frames: torch.Tensor, state: Depth2DState,
                     (state.disp_conf, conf_new)]
         if line:
             # C_l is refreshed only where this pass's sweep succeeded
-            # (k_best is the winning line's there); elsewhere the plane
+            # (k_best is the winning line's there), so it is computed
+            # there alone (good lies in mask_new); elsewhere the plane
             # keeps its value
             lc = torch.where(good, _line_confidence(state.ce, filtered,
-                                                    res.k_best, mask_new,
-                                                    s_hat),
+                                                    res.k_best, good, s_hat),
                              state.line_conf[s_hat])
             state.line_conf[s_hat] = lc
             source_mask = lc > params.line_score_threshold

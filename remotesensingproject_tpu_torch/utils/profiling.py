@@ -17,8 +17,8 @@ is on:
 
 The counters (what each counts is said where it is counted):
 ``passes``, ``syncs.sweep_compact``, ``syncs.early_stop``,
-``syncs.verbose``, ``sweep.sample_steps`` (device) and
-``alloc.device_calls``.
+``syncs.verbose``, ``sweep.sample_steps`` (device),
+``line_conf.pixels`` (device) and ``alloc.device_calls``.
 
 The JAX module's ``enable_compilation_cache`` has no counterpart: the
 port compiles its CUDA kernels with nvcc once per source hash into

@@ -46,7 +46,8 @@ from remotesensingproject_tpu_torch.ops import cuda_build  # noqa: E402
 # those through the pixel sweep only, with four bands through the tile
 # sweep only (models/depth2d.py sweep_pass).  First match wins.
 PORTS = {"PcRuleRow": "sweep_rows", "sweep_pc_kernel": None,
-         "selective_median_kernel": "median", "paint_kernel": "paint"}
+         "selective_median_kernel": "median", "paint_kernel": "paint",
+         "line_conf_kernel": "line_conf"}
 
 
 #: the bench command's variable of each scene
