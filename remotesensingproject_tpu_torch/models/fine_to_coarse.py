@@ -17,6 +17,18 @@ With a ``mesh`` (``parallel.mesh``) every rank builds the pyramid from the
 full volume and each level is a ``ShardedDepth2DComputer`` over the mesh;
 the bounds of the next level and the fusion run on the gathered maps, so
 every rank holds the same results (every rank must call the getters).
+
+While the port's tracing is on (``utils.profiling``), ``FineToCoarse``
+records ``ftc.levels`` (the levels built), ``ftc.level<p>.held_bytes``
+(what level p's computer holds once it has run: :func:`held_bytes`) and,
+on CUDA, ``ftc.level<p>.peak_rise_bytes`` (how far the allocator's peak
+during level p's run, with the next level's bounds, rose above what was
+allocated when the level started).  Each is a reading of the last
+``FineToCoarse`` built or run, which the next one replaces
+(``profiling.record``), so a traced block over many scenes reads one
+scene's levels.  To scope each level's peak, tracing on a CUDA device
+resets the allocator's peak (``torch.cuda.reset_peak_memory_stats``) as
+each level starts: a process's whole peak is read outside tracing.
 """
 
 from __future__ import annotations
@@ -35,7 +47,30 @@ from ..utils import profiling
 from ..utils.checkpoint import load_level, save_level
 from ..utils.plot import (ImageConverterUint8, coloured_depth_maps,
                           depth_pyramid_images, side_by_side)
-from .depth2d import Depth2DComputer, _as_tensor
+from .depth2d import Depth2DComputer, Depth2DState, _as_tensor
+
+
+def held_bytes(computer) -> int:
+    """Bytes of the distinct storages behind the tensors a level's
+    computer holds, in its attributes and in its state's planes (its EPIs,
+    the planes, the bounds; a mesh rank's own block), counted from the
+    tensors: the same on any device."""
+    held = []
+    for v in vars(computer).values():
+        held.extend(vars(v).values() if isinstance(v, Depth2DState) else [v])
+    storages = {(t.device, t.untyped_storage().data_ptr()):
+                t.untyped_storage().nbytes()
+                for t in held if isinstance(t, torch.Tensor)}
+    return sum(storages.values())
+
+
+def _level_peak_start(device: torch.device) -> Optional[int]:
+    """On CUDA, resets the allocator's peak and returns what is allocated:
+    the base of a level's peak rise; else None."""
+    if device.type != "cuda":
+        return None
+    torch.cuda.reset_peak_memory_stats(device)
+    return torch.cuda.memory_allocated(device)
 
 
 class FineToCoarse:
@@ -114,6 +149,7 @@ class FineToCoarse:
 
             if pyramid.accept_all_last_scale:
                 self.computers[-1].set_accept_all(True)
+            profiling.record("ftc.levels", len(self.computers))
 
     def run(self, ckpt_dir: Optional[str] = None):
         """Run all levels fine to coarse, deriving per-pixel bounds.
@@ -124,7 +160,9 @@ class FineToCoarse:
             (``utils.checkpoint``, the JAX package's file format).
         """
         self.level_seconds = []
+        counting = profiling.enabled()
         for p, computer in enumerate(self.computers):
+            base = _level_peak_start(self.device) if counting else None
             with profiling.span("ftc.level"), \
                     profiling.counting_allocs(self.device):
                 t0 = time.perf_counter()
@@ -147,6 +185,13 @@ class FineToCoarse:
                     nxt.dmin_s_v_u, nxt.dmax_s_v_u))
             # r_bar is only read while the level's own passes paint
             computer.drop_rbar()
+            if counting:
+                profiling.record(f"ftc.level{p}.held_bytes",
+                                 held_bytes(computer))
+                if base is not None:
+                    profiling.record(
+                        f"ftc.level{p}.peak_rise_bytes",
+                        torch.cuda.max_memory_allocated(self.device) - base)
 
     def get_results(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Fused disparity maps + validity at the finest scale

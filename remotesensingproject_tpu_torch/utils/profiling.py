@@ -10,7 +10,8 @@ is on:
   places each kernel on the same host clock through its runtime call, so
   every idle gap of the device falls inside the innermost program span
   open at that moment;
-* :func:`count` adds to a host counter, and :func:`device_counter` hands
+* :func:`count` adds to a host counter, :func:`record` sets one to a
+  reading of the last run (a gauge), and :func:`device_counter` hands
   out an int64 tensor that a kernel adds to on the device; a device
   counter is read to the host only in :func:`counters`, so the hot path
   gains no sync.
@@ -18,7 +19,8 @@ is on:
 The counters (what each counts is said where it is counted):
 ``passes``, ``syncs.sweep_compact``, ``syncs.early_stop``,
 ``syncs.verbose``, ``sweep.sample_steps`` (device),
-``line_conf.pixels`` (device) and ``alloc.device_calls``.
+``line_conf.pixels`` (device), ``alloc.device_calls``, ``ftc.levels``,
+``ftc.level<p>.held_bytes`` and ``ftc.level<p>.peak_rise_bytes``.
 
 The JAX module's ``enable_compilation_cache`` has no counterpart: the
 port compiles its CUDA kernels with nvcc once per source hash into
@@ -56,6 +58,12 @@ def tracing():
         _on = before
 
 
+def enabled() -> bool:
+    """Whether tracing is on: a site whose count costs more than a flag
+    test asks first."""
+    return _on
+
+
 def span(name: str):
     """A ``rslf/<name>`` profiler range while tracing, else a shared
     null context."""
@@ -68,6 +76,13 @@ def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the host counter ``name`` while tracing."""
     if _on:
         _host[name] = _host.get(name, 0) + n
+
+
+def record(name: str, n: int) -> None:
+    """Set the host counter ``name`` to ``n`` while tracing: a reading of
+    the last run, which a later run replaces and does not add to."""
+    if _on:
+        _host[name] = n
 
 
 def device_counter(name: str, device: torch.device) -> Optional[torch.Tensor]:

@@ -8,8 +8,12 @@ tests marked ``cuda`` hold the sweep wrappers' counters against their
 calls and against a ``work_count`` passed by hand; they skip without a
 card (decided inside each test).  This file imports no JAX, so the card
 tests run with ``python -m pytest tests/test_torch_profiling.py
---noconftest -q``."""
+--noconftest -q``.  ``FineToCoarse``'s level counters (``ftc.levels``,
+``ftc.level<p>.held_bytes``, on the card ``ftc.level<p>.peak_rise_bytes``)
+are held against the levels' tensors, and read the last run of a traced
+block that holds two."""
 
+import dataclasses
 import glob
 import json
 import os
@@ -20,6 +24,7 @@ import torch
 import oracle
 from remotesensingproject_tpu_torch import (Depth2DComputer, DepthParams,
                                             FineToCoarse, PyramidParams)
+from remotesensingproject_tpu_torch.models import fine_to_coarse
 from remotesensingproject_tpu_torch.ops.sweep_pallas import sweep_pile_rows
 from remotesensingproject_tpu_torch.ops.sweep_pallas_perpixel import (
     sweep_pile_tiles)
@@ -169,6 +174,78 @@ def test_device_trace_writes_trace_and_counters(tmp_path):
     assert profiling.counters() == {}
 
 
+def _level_bytes(computer) -> int:
+    """The bytes of a finished level's EPIs, state planes and bounds,
+    each distinct tensor's elements once."""
+    tensors = [computer.epis, computer._dmin_arr, computer._dmax_arr] + [
+        getattr(computer.state, f.name)
+        for f in dataclasses.fields(computer.state)]
+    distinct = {t.data_ptr(): t.numel() * t.element_size()
+                for t in tensors if t is not None}
+    return sum(distinct.values())
+
+
+@pytest.mark.parametrize("score", ["edge", "line"])
+def test_level_counters_count_the_levels_and_their_bytes(score):
+    with profiling.tracing():
+        ftc, _ = _ftc(score=score)
+    got = profiling.counters()
+    assert got["ftc.levels"] == len(ftc.computers) > 1
+    for p, c in enumerate(ftc.computers):
+        assert got[f"ftc.level{p}.held_bytes"] == _level_bytes(c) > 0, p
+    assert c._dmin_arr is not None and ftc.computers[0]._dmin_arr is None
+    assert not [k for k in got if k.endswith("peak_rise_bytes")]
+
+
+def test_level_counters_read_the_last_run_of_a_traced_block():
+    with profiling.tracing():
+        profiling.record("r", 2)
+        profiling.record("r", 5)
+        _ftc()
+        ftc, _ = _ftc()
+    profiling.record("r", 7)                   # the switch is off again
+    got = profiling.counters()
+    assert got["r"] == 5
+    assert got["ftc.levels"] == len(ftc.computers)
+    for p, c in enumerate(ftc.computers):
+        assert got[f"ftc.level{p}.held_bytes"] == _level_bytes(c) > 0, p
+
+
+def test_held_bytes_counts_a_storage_once_and_gathers_nothing():
+    class MeshRank:
+        """A mesh rank's computer: its ``state`` gathers every rank's."""
+
+        @property
+        def state(self):
+            raise AssertionError("held_bytes gathered the state")
+
+    rank = MeshRank()
+    rank.epis = torch.zeros((4, 3, 5, 1))
+    rank.epis_tail = rank.epis[2:]
+    planes = {f.name: torch.zeros((3, 2, 5)) for f in
+              dataclasses.fields(fine_to_coarse.Depth2DState)}
+    planes["ce_mask"] = planes["claim"] = torch.zeros((3, 2, 5),
+                                                      dtype=torch.bool)
+    rank.local_state = fine_to_coarse.Depth2DState(**planes)
+    assert fine_to_coarse.held_bytes(rank) == 60 * 4 + 5 * 30 * 4 + 30
+
+
+def test_level_counters_off_compute_nothing(monkeypatch):
+    with profiling.tracing():
+        _, (fused_on, valid_on) = _ftc()
+    profiling.reset()
+
+    def refuse(*a):
+        raise AssertionError("a level counter computed with tracing off")
+
+    monkeypatch.setattr(fine_to_coarse, "held_bytes", refuse)
+    monkeypatch.setattr(fine_to_coarse, "_level_peak_start", refuse)
+    _, (fused_off, valid_off) = _ftc()
+    assert profiling.counters() == {}
+    assert torch.equal(fused_off, fused_on)
+    assert torch.equal(valid_off, valid_on)
+
+
 # ---- on the card ----
 
 def _dev():
@@ -238,3 +315,26 @@ def test_pipeline_counters_on_the_card(score):
     assert got["alloc.device_calls"] >= 0
     names = {n for n, _, _ in spans}
     assert {"rslf/sweep.compact", "rslf/sweep.launch"} <= names
+
+
+@pytest.mark.cuda
+def test_level_memory_counters_on_the_card():
+    """Two runs in one traced block, after an untraced one that set the
+    process's peak: the second run's readings are its own, not a sum, and
+    its levels still rise although the process peaked before."""
+    dev = _dev()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _ftc(device=dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    with profiling.tracing():
+        _ftc(device=dev)
+        ftc, _ = _ftc(device=dev)
+    got = profiling.counters()
+    rises = [got[f"ftc.level{p}.peak_rise_bytes"]
+             for p in range(len(ftc.computers))]
+    assert got["ftc.levels"] == len(ftc.computers)
+    assert rises[0] > 0
+    assert all(0 <= r <= peak for r in rises)
+    for p, c in enumerate(ftc.computers):
+        assert got[f"ftc.level{p}.held_bytes"] == _level_bytes(c), p
