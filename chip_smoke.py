@@ -34,13 +34,16 @@ Phases, one line each (details on further lines):
    depth, disp_conf, line_conf; sources C_l > threshold) at a first and a
    late pass; the line confidence at the good pixels of the first level-0
    pass and of a late one (nvcc's report of it must show no stack frame),
-   timed beside the plain version over the post-sweep mask.  Every kernel
-   bitwise;
+   timed beside the plain version over the post-sweep mask; the pass's
+   merge at the first level-0 pass and at a late one (a few per cent of
+   its active pixels), timed beside its plain route's 19 launches.  Every
+   kernel bitwise;
    each kernel's time, its plain version's, and the least time the card
    could take (``bound_ms``);
 3. the full fine-to-coarse pipeline on that scene through
    ``FineToCoarse(...).run(); get_results()``, with every kernel's launch
-   count, the wall time, and the quality gate of bench.py: RMSE and P90 of
+   count (the merge's must equal the passes run), the wall time, and the
+   quality gate of bench.py: RMSE and P90 of
    |fused - gt| over the pre-run edge mask within 0.1 px of
    REF_ANCHOR.json's compiled-reference numbers;
 4. the pile (``Depth1DComputerPile``: one s_hat, all rows) on that scene,
@@ -93,8 +96,9 @@ Phases, one line each (details on further lines):
    one paint u-halo cost at level-0 sizes;
 14. ``--no-pallas``: ``FineToCoarse(..., use_pallas=False)`` and the CLI's
    ``fine-to-coarse --no-pallas`` on data/strips16 on the card: no kernel
-   launched, the results on the card, the CLI's npz equal to the API's,
-   and the gate of tests/test_sample_data.py on the fused map;
+   launched but the merge's (no stage hook: XLA on both of the JAX
+   package's paths), the results on the card, the CLI's npz equal to the
+   API's, and the gate of tests/test_sample_data.py on the fused map;
 15. bench.py's scenes through the port's ``bench``: first the pixel sweep,
    the median and the paint against their plain versions, bitwise, at the
    first level-0 pass of the D240 (SkysatLR18 [240]: D=240), HR
@@ -142,6 +146,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 
 import numpy as np
@@ -404,6 +409,7 @@ def wrappers_of():
         line_confidence_cuda
     from remotesensingproject_tpu_torch.ops.median_pallas import \
         selective_median_cuda
+    from remotesensingproject_tpu_torch.ops.merge import merge_cuda
     from remotesensingproject_tpu_torch.ops.propagation_pallas import \
         propagate_cuda
     from remotesensingproject_tpu_torch.ops.sweep_pallas import \
@@ -415,7 +421,7 @@ def wrappers_of():
     return {"sweep_pixel": sweep_pile_pixel, "sweep_rows": sweep_pile_rows,
             "sweep_tiles": sweep_pile_tiles,
             "median": selective_median_cuda, "paint": propagate_cuda,
-            "line_conf": line_confidence_cuda}
+            "line_conf": line_confidence_cuda, "merge": merge_cuda}
 
 
 def sharded_rank(rank, out, with_2d):
@@ -537,6 +543,7 @@ def main() -> int:
         from remotesensingproject_tpu_torch.ops.median import \
             selective_median
         from remotesensingproject_tpu_torch.ops import median_pallas
+        from remotesensingproject_tpu_torch.ops.merge import merge, merge_cuda
         from remotesensingproject_tpu_torch.ops.median_pallas import \
             selective_median_cuda
         from remotesensingproject_tpu_torch.ops.propagation import propagate
@@ -1019,6 +1026,53 @@ def main() -> int:
         claim0 & late((S, V, U), 0.1), frames, filtered, rbar,
         lc_src & late((V, U), 0.01), conf, lc=lc)
     del lc, lc_src
+
+    # the pass's merge on copies of the pass state, bitwise its plain
+    # route, at the first level-0 pass and at a late one (a few per cent
+    # of its active pixels)
+    def check_merge(tag, act):
+        planes = ("ce", "ce_mask", "disp_conf", "best_depth", "rbar")
+
+        def fresh():
+            return types.SimpleNamespace(**{n: getattr(state, n).clone()
+                                            for n in planes})
+
+        got_st, want_st = fresh(), fresh()
+        thr = params.raw_score_threshold
+        got = merge_cuda(got_st, s_hat, act, res, thr, with_good=True)
+        want = merge(want_st, s_hat, act, res, thr, with_good=True)
+        same = all(torch.equal(getattr(got_st, n), getattr(want_st, n))
+                   for n in planes) and all(
+            torch.equal(a, b) for a, b in zip(got, want))
+        if not same:
+            failures.append(f"merge {tag} not bitwise equal")
+        st = fresh()
+        ms = device_ms(torch, lambda: merge_cuda(st, s_hat, act, res, thr))
+        call_ms = time_ms(torch, lambda: merge_cuda(st, s_hat, act, res,
+                                                    thr), reps=5)
+        plain_ms = time_ms(torch, lambda: merge(st, s_hat, act, res, thr),
+                           reps=5)
+        n_act = int(act.sum())
+        n_good = int(got.good.sum())
+        Cm = res.rbar.shape[-1]
+        # every pixel: its active byte, its conf written; a pixel not good:
+        # disp_conf read for the copy; an active one: its best score; a
+        # bad one: ce and its mask byte written; a good one: ce, the mean
+        # score, the sweep's depth and r_bar read, best_depth, disp_conf
+        # and r_bar written
+        nbytes = (V * U * 5 + (V * U - n_good) * 4 + n_act * 4
+                  + (n_act - n_good) * 5 + n_good * (24 + 8 * Cm))
+        bms, by = bound(nbytes, n_good * 3)
+        print(f"  merge {tag}: bitwise {same}, {n_act} active px, {n_good} "
+              f"good, kernel {ms:.4f} ms a launch back to back "
+              f"({call_ms:.4f} ms one call on the host clock), plain "
+              f"{plain_ms:.3f} ms (19 launches), bound {bms:.4f} ms by {by}")
+        return dict(max_abs_err=0.0 if same else float("nan"), ms=ms,
+                    plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+
+    records["merge"] = check_merge("first level-0 pass", active)
+    modes["merge"] = {"late pass": check_merge(
+        "late pass", (active & late((V, U), 0.03)).contiguous())}
     del comp, epis, frames, state, res, claim0, epis3, epis4, frames4
     torch.cuda.empty_cache()
     if failures:
@@ -1071,8 +1125,14 @@ def main() -> int:
                 for c, t in zip(f.computers, f.level_seconds)]
 
     (ftc, fused, validity), wall, launches = run_path(
-        "phase 3", ("sweep_pixel", "median", "paint"), lambda: run_ftc(vol))
+        "phase 3", ("sweep_pixel", "median", "paint", "merge"),
+        lambda: run_ftc(vol))
     wall3 = wall
+    passes3 = sum(c.passes_run for c in ftc.computers)
+    print(f"phase 3 merge: {launches['merge']} launches, {passes3} passes")
+    if launches["merge"] != passes3:
+        failures.append(f"phase 3: {launches['merge']} merge launches for "
+                        f"{passes3} passes")
     print(f"phase 3 pipeline: {wall:.2f}s wall, {len(ftc.computers)} levels "
           f"(V, S, U, passes, s) {level_line(ftc)}, launches {launches}, "
           f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1623,7 +1683,10 @@ def main() -> int:
           f"{rmse_np:.4f} px (< 0.3): {'ok' if ok_np else 'FAILED'}; CLI "
           f"{wall_cli:.2f}s, launches {launches_cli}, npz equal to the "
           f"API's {same_cli}")
-    if any(launches.values()) or any(launches_cli.values()):
+    # the merge is no stage hook (XLA on both of the JAX package's paths):
+    # its kernel runs under --no-pallas too, once a pass
+    if any(n for k, n in (*launches.items(), *launches_cli.items())
+           if k != "merge"):
         failures.append("phase 14: a kernel launched under --no-pallas")
     if not (on_card and ok_np and same_cli):
         failures.append(f"phase 14: on the card {on_card}, gate {ok_np}, "
@@ -1846,6 +1909,9 @@ def main() -> int:
         "line_conf": ("remotesensingproject_tpu_torch/csrc/line_conf.cu",
                       "no TPU kernel: the JAX package's XLA, "
                       "remotesensingproject_tpu/models/depth2d.py:68"),
+        "merge": ("remotesensingproject_tpu_torch/csrc/merge.cu",
+                  "no TPU kernel: the JAX package's XLA, "
+                  "remotesensingproject_tpu/models/depth2d.py:433"),
     }
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=total[k], library_ms=None, **records[k],

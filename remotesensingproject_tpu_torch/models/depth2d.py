@@ -55,6 +55,7 @@ from ..ops.edge_confidence import edge_confidence_volume
 from ..ops.line_confidence import line_confidence_cuda
 from ..ops.median import selective_median
 from ..ops.median_pallas import selective_median_cuda
+from ..ops.merge import merge_cuda
 from ..ops.normalize import normalize_volume
 from ..ops.propagation import propagate
 from ..ops.propagation_pallas import propagate_cuda
@@ -221,7 +222,9 @@ def _pass_fn(epis: torch.Tensor, frames: torch.Tensor, state: Depth2DState,
     ``median_fn(src, frame, mask, size, epsilon)`` with the signature of
     ``selective_median``, and ``prop_fn(claim, frames, filtered, rbar,
     source_mask, s_hat, payloads)``, which paints in place.  Every merge
-    and state update stays here, so there is one pass implementation."""
+    and state update is made here (the sweep's through ``merge_cuda``: the
+    kernel on the card, the plain version elsewhere), so there is one pass
+    implementation."""
     with profiling.span("depth2d.pass"):
         profiling.count("passes")
         line = params.score_version == "line"
@@ -238,9 +241,7 @@ def _pass_fn(epis: torch.Tensor, frames: torch.Tensor, state: Depth2DState,
                 return propagate_cuda(claim, frames_, filtered, rbar,
                                       source_mask, sh, params.slope_factor,
                                       params.propagation_epsilon, payloads)
-        ce_p = state.ce[s_hat]
         mask_p = state.ce_mask[s_hat]
-        zero = torch.zeros((), dtype=DTYPE, device=epis.device)
 
         # the reference ANDs the edge mask into the claim plane in place
         # before collecting pixels (core.hpp:510-513)
@@ -254,23 +255,9 @@ def _pass_fn(epis: torch.Tensor, frames: torch.Tensor, state: Depth2DState,
         res = sweep_fn(active, dmin_v_u, dmax_v_u, s_hat)
 
         with profiling.span("pass.merge"):
-            ok = res.best_score > params.raw_score_threshold
-            good = active & ok
-            bad = active & ~ok
-            ce_new = torch.where(bad, zero, ce_p)
-            mask_new = mask_p & ~bad
-            depth_new = torch.where(good, res.best_depth,
-                                    state.best_depth[s_hat])
-            conf_new = torch.where(
-                good, ce_new * torch.abs(res.best_score - res.score_mean),
-                state.disp_conf[s_hat])
-            rbar_new = torch.where(good[..., None], res.rbar,
-                                   state.rbar[s_hat])
-            state.ce[s_hat] = ce_new
-            state.ce_mask[s_hat] = mask_new
-            state.disp_conf[s_hat] = conf_new
-            state.best_depth[s_hat] = depth_new
-            state.rbar[s_hat] = rbar_new
+            depth_new, mask_new, conf_new, rbar_new, good = merge_cuda(
+                state, s_hat, active, res, params.raw_score_threshold,
+                with_good=line)
 
         # selective median of the s_hat plane, gated by the post-sweep mask;
         # the filtered values drive propagation but are not stored

@@ -26,7 +26,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 KERNELS = ("sweep_pixel", "median", "paint", "sweep_rows", "sweep_tiles",
-           "line_conf")
+           "line_conf", "merge")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",

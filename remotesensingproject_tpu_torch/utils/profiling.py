@@ -19,7 +19,8 @@ is on:
 The counters (what each counts is said where it is counted):
 ``passes``, ``syncs.sweep_compact``, ``syncs.early_stop``,
 ``syncs.verbose``, ``sweep.sample_steps`` (device),
-``line_conf.pixels`` (device), ``alloc.device_calls``, ``ftc.levels``,
+``line_conf.pixels`` (device), ``merge.launches``,
+``alloc.device_calls``, ``ftc.levels``,
 ``ftc.level<p>.held_bytes`` and ``ftc.level<p>.peak_rise_bytes``.
 
 The JAX module's ``enable_compilation_cache`` has no counterpart: the

@@ -15,7 +15,9 @@ then once under ``torch.profiler``.  Prints one JSON line: the profiled
 wall time, the device time summed per CUDA kernel (the port's kernels by
 name, PyTorch's own kernels grouped), the device busy share (summed
 kernel time over wall time; one stream, so kernels do not overlap) and
-the card's name and power limit.
+the card's name and power limit, and ``kernel_launches``: the device
+operations the profiler saw (kernels, the port's and PyTorch's, copies
+and fills).
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ from remotesensingproject_tpu_torch.ops import cuda_build  # noqa: E402
 # sweep only (models/depth2d.py sweep_pass).  First match wins.
 PORTS = {"PcRuleRow": "sweep_rows", "sweep_pc_kernel": None,
          "selective_median_kernel": "median", "paint_kernel": "paint",
-         "line_conf_kernel": "line_conf"}
+         "line_conf_kernel": "line_conf", "merge_kernel": "merge"}
 
 
 #: the bench command's variable of each scene
@@ -107,11 +109,13 @@ def main() -> int:
         wall = time.perf_counter() - t0
     by_kernel = {}
     other = {}
+    launches = 0
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
         if dev_us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
+        launches += ev.count
         port = next((v for k, v in PORTS.items() if k in ev.key), None)
         if port:
             by_kernel[port] = by_kernel.get(port, 0.0) + dev_us / 1e3
@@ -132,6 +136,7 @@ def main() -> int:
         "device_ms_ports": by_kernel,
         "device_ms_pytorch_total": sum(other.values()),
         "device_ms_pytorch_top": top_other,
+        "kernel_launches": launches,
         "device_busy_share": busy_ms / (wall * 1e3),
     }))
     return 0

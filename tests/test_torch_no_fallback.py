@@ -17,7 +17,7 @@ from remotesensingproject_tpu_torch.models.depth2d import Depth2DComputer
 from remotesensingproject_tpu_torch.models.fine_to_coarse import FineToCoarse
 from remotesensingproject_tpu_torch.models.pile import Depth1DComputerPile
 from remotesensingproject_tpu_torch.ops import (cuda_build, median_pallas,
-                                                propagation_pallas,
+                                                merge, propagation_pallas,
                                                 sweep_pallas,
                                                 sweep_pallas_perpixel,
                                                 sweep_pallas_pixel)
@@ -278,6 +278,42 @@ def test_median_raises_for_cuda_tensor_never_plain(monkeypatch):
         median_pallas.selective_median_cuda(plane, frame, mask, 18, 0.1)
     assert not plain_calls
     assert n0 == median_pallas.selective_median_cuda.launches
+
+
+@pytest.mark.parametrize("with_good", [False, True])
+def test_merge_raises_for_cuda_tensor_never_plain(monkeypatch, with_good):
+    """Given a CUDA tensor the pass's merge launches its kernel or raises:
+    here, with no card and no nvcc, it must raise, and must not reach the
+    plain version; operands of the wrong shape raise first."""
+    import types
+
+    from remotesensingproject_tpu_torch.ops.sweep import SweepResult
+
+    plain_calls = []
+
+    def no_nvcc(name):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(merge, "merge",
+                        lambda *a, **k: plain_calls.append(a))
+    monkeypatch.setattr(cuda_build, "load", no_nvcc)
+    n0 = merge.merge_cuda.launches
+    volume = _OnCard(torch.zeros((5, 2, 16)))
+    state = types.SimpleNamespace(
+        ce=volume, ce_mask=_OnCard(torch.zeros((5, 2, 16), dtype=torch.bool)),
+        disp_conf=volume, best_depth=volume,
+        rbar=_OnCard(torch.zeros((5, 2, 16, 3))))
+    plane = _OnCard(torch.zeros((2, 16)))
+    res = SweepResult(plane, plane, plane, _OnCard(torch.zeros((2, 16, 3))),
+                      None)
+    mask = _OnCard(torch.ones((2, 16), dtype=torch.bool))
+    with pytest.raises((RuntimeError, AssertionError)):
+        merge.merge_cuda(state, 2, mask, res, 0.0, with_good)
+    with pytest.raises(ValueError, match="merge"):
+        merge.merge_cuda(state, 2, _OnCard(torch.ones((2, 15), dtype=bool)),
+                         res, 0.0, with_good)
+    assert not plain_calls
+    assert n0 == merge.merge_cuda.launches
 
 
 def _write_frames(vol, folder):

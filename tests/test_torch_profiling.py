@@ -311,6 +311,7 @@ def test_pipeline_counters_on_the_card(score):
     passes = sum(c.passes_run for c in ftc.computers)
     assert got["passes"] == passes
     assert got["syncs.sweep_compact"] == got["syncs.early_stop"] == passes
+    assert got["merge.launches"] == passes      # one merge kernel a pass
     assert got["sweep.sample_steps"] > 0
     assert got["alloc.device_calls"] >= 0
     names = {n for n, _, _ in spans}
