@@ -134,7 +134,6 @@ beside it, or when any phase (or any rank) fails.  Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import dataclasses
 import hashlib
 import io
@@ -152,13 +151,15 @@ import warnings
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+if HERE not in sys.path:
+    sys.path.append(HERE)
+from benchmark import kernel_names  # noqa: E402
+from benchmark.counts import (PEAK_BYTES, PEAK_FP32,  # noqa: E402
+                              median_bytes)
 S, V, U, D = 100, 540, 960, 120
 DMIN, DMAX = -1.0, 4.0
 ANCHOR_KEY = f"{S}x{V}x{U}x{D}"
 MARGIN_PX = 0.10
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s
-PEAK_BYTES = 3.35e12
-PEAK_FP32 = 67e12
 SWEEP_OUTS = ("best_score", "score_mean", "best_depth", "rbar", "k_best")
 # the JAX package's figures on the bench scene (BENCH_LINE.json,
 # BENCH_FASTMODE.json): RMSE, P90 px
@@ -270,17 +271,10 @@ def device_ms(torch, fn, reps=20):
 
 
 def launch_floor_ms(torch, cuda_build, dev):
-    """``device_ms`` of an empty kernel (``csrc/median.cu``)."""
-    lib = cuda_build.load("median")
-    fn = lib.rslf_launch_floor
-    fn.argtypes = [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
-    def launch():
-        if fn(cuda_build.stream_ptr(dev)) != 0:
-            raise RuntimeError("empty kernel launch failed")
-
-    return device_ms(torch, launch, reps=50)
+    """``device_ms`` of an empty kernel (``csrc/median.cu``); its launches
+    count as the median's."""
+    launch = cuda_build.Entry("median", "rslf_launch_floor", "s")
+    return device_ms(torch, lambda: launch(device=dev), reps=50)
 
 
 def time_ms(torch, fn, reps=3, setup=None):
@@ -304,21 +298,12 @@ def bound(nbytes, nflops):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def kernel_name(mangled: str):
-    """``name<int and bool args[,position rule]>`` of a mangled kernel name
-    (a bool as 0 or 1), None if none is in it (each instantiation apart:
-    ``selective_median_kernel<5,1>``, ``sweep_pc_kernel<1,PcRuleNearest>``,
-    ``paint_kernel<1,0>``)."""
-    m = re.search(r"\d([a-z_]+_kernel)((?:IL[ib]-?\d+E)?(?:L[ib]-?\d+E)*)",
-                  mangled)
-    if not m:
-        return None
-    args = re.findall(r"L[ib](-?\d+)E", m.group(2))
-    # a type argument: its length, then its name (``11PcRulePixel``)
-    rest = mangled[m.end():]
-    args += [rest[t.start(2):t.start(2) + int(t.group(1))]
-             for t in re.finditer(r"(\d+)(PcRule)", rest)]
-    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+def kernel_name(line: str):
+    """``name<int and bool args[,position rule]>`` of the mangled kernel
+    name in a line of ptxas or cuobjdump output, None if none is in it
+    (``benchmark/kernel_names.py``)."""
+    m = re.search(r"_Z\w+", line)
+    return kernel_names.kernel_name(m.group(0)) if m else None
 
 
 def ptxas_summary(log: str):
@@ -403,27 +388,6 @@ def digest(t) -> str:
 LEVEL0_PLANES = ("ce", "ce_mask", "disp_conf", "best_depth", "claim")
 
 
-def wrappers_of():
-    """The kernel wrappers, by kernel name."""
-    from remotesensingproject_tpu_torch.ops.line_confidence import \
-        line_confidence_cuda
-    from remotesensingproject_tpu_torch.ops.median_pallas import \
-        selective_median_cuda
-    from remotesensingproject_tpu_torch.ops.merge import merge_cuda
-    from remotesensingproject_tpu_torch.ops.propagation_pallas import \
-        propagate_cuda
-    from remotesensingproject_tpu_torch.ops.sweep_pallas import \
-        sweep_pile_rows
-    from remotesensingproject_tpu_torch.ops.sweep_pallas_perpixel import \
-        sweep_pile_tiles
-    from remotesensingproject_tpu_torch.ops.sweep_pallas_pixel import \
-        sweep_pile_pixel
-    return {"sweep_pixel": sweep_pile_pixel, "sweep_rows": sweep_pile_rows,
-            "sweep_tiles": sweep_pile_tiles,
-            "median": selective_median_cuda, "paint": propagate_cuda,
-            "line_conf": line_confidence_cuda, "merge": merge_cuda}
-
-
 def sharded_rank(rank, out, with_2d):
     """One rank of phase 13 in a started process group (every rank on
     cuda:0): the sharded fine-to-coarse on the bench scene over the 1-D
@@ -444,22 +408,22 @@ def sharded_rank(rank, out, with_2d):
     from remotesensingproject_tpu_torch.parallel.sharding2d import \
         halo_widths
 
+    from remotesensingproject_tpu_torch.ops import cuda_build
+
     dev = torch.device("cuda:0")
     world = dist.get_world_size()
-    wrappers = wrappers_of()
     vol, _ = synthetic_sequence(torch, dev)
     res = {"rank": rank, "backend": dist.get_backend()}
 
     def path(fn):
-        for w in wrappers.values():
-            w.launches = 0
+        cuda_build.launches.clear()
         torch.cuda.synchronize()
         dist.barrier()
         t0 = time.perf_counter()
         r = fn()
         torch.cuda.synchronize()
-        return r, time.perf_counter() - t0, {k: w.launches
-                                             for k, w in wrappers.items()}
+        return r, time.perf_counter() - t0, {
+            k: cuda_build.launches[k] for k in cuda_build.KERNELS}
 
     def ftc():
         f = FineToCoarse(vol, DMIN, DMAX, D, params=DEFAULT_PARAMS,
@@ -842,7 +806,7 @@ def main() -> int:
         ms = device_ms(torch, run)
         call_ms = time_ms(torch, run, reps=5)
         Vm, Um, Cm = fr.shape
-        bms, by = bound(Vm * Um * (4 + 1 + 4 * Cm + 4),
+        bms, by = bound(median_bytes(Vm, Um, Cm),
                         int(m.sum()) * size ** 2 * (3 * Cm + 2))
         plan = median_pallas.launch_plan(size, Cm)
         print(f"  median {tag}: bitwise {same}, {Vm}x{Um} px, size {size}, "
@@ -1081,21 +1045,19 @@ def main() -> int:
     print("phase 2 ok: every kernel agrees with its plain version")
 
     # ---- the main paths (phases 3-5, 7-9), counts reset just before each
-    wrappers = wrappers_of()
-    total = dict.fromkeys(wrappers, 0)
+    total = dict.fromkeys(cuda_build.KERNELS, 0)
 
     def run_path(tag, needs, fn):
         """Run one main path; fail unless each kernel in ``needs``
         launched.  Returns (result, wall seconds, launches)."""
-        for w in wrappers.values():
-            w.launches = 0
+        cuda_build.launches.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0_ = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall_ = time.perf_counter() - t0_
-        counts = {k: w.launches for k, w in wrappers.items()}
+        counts = {k: cuda_build.launches[k] for k in cuda_build.KERNELS}
         for k, n in counts.items():
             total[k] += n
         missing = [k for k in needs if counts[k] == 0]

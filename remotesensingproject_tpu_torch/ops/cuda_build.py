@@ -6,10 +6,16 @@ build happens at first use, into ``build/kernels/`` beside the package
 (listed in ``.gitignore``); the file name carries a hash of the sources
 and flags, so an edited kernel is rebuilt and an unchanged one is not.
 Nothing is built or loaded when this module is imported.
+
+A wrapper calls a library's C functions through :class:`Entry`, which
+declares each one once: every launch passes its tensors as pointers,
+appends the current stream, raises on a CUDA error and counts itself in
+:data:`launches`.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -18,15 +24,15 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 import torch
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
-KERNELS = ("sweep_pixel", "median", "paint", "sweep_rows", "sweep_tiles",
-           "line_conf", "merge")
+#: the kernel libraries, one a ``csrc/*.cu``
+KERNELS = tuple(sorted(p.stem for p in CSRC_DIR.glob("*.cu")))
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -37,6 +43,10 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+#: the bound C functions, by (library, symbol)
+_bound: Dict[Tuple[str, str], Any] = {}
+#: kernel launches by library since the count was last cleared
+launches = collections.Counter()
 
 
 def _nvcc() -> str:
@@ -69,6 +79,15 @@ def set_build_dir(path) -> None:
     with _lock:
         BUILD_DIR = Path(path)
         _libs.clear()
+        _bound.clear()
+
+
+def use_library(name: str, path) -> None:
+    """Load kernel ``name`` from the library at ``path`` from now on, in
+    place of the one built from ``csrc/`` (designs side by side)."""
+    with _lock:
+        _libs[name] = ctypes.CDLL(str(path))
+        _bound.clear()
 
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
@@ -125,42 +144,74 @@ def load(name: str) -> ctypes.CDLL:
 #: cudaErrorInvalidConfiguration: what a sweep launcher returns when no
 #: block size of its kernel fits the card's shared memory
 _NO_CONFIGURATION = 9
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float,
+           "s": ctypes.c_void_p}
 
 
-def check(err: int, lib: ctypes.CDLL, error_string: str, what: str,
-          no_fit: Optional[str] = None):
-    """Raise if a launch returned a CUDA error: NotImplementedError with
-    ``no_fit`` (the size at fault) where a launcher found no block size
-    that fits, RuntimeError otherwise."""
+def check(err: int, name: str, what: str, no_fit: Optional[str] = None):
+    """Raise if a call into library ``name`` returned a CUDA error:
+    NotImplementedError with ``no_fit`` (the size at fault) where a
+    launcher found no block size that fits, RuntimeError with the text of
+    the library's ``rslf_<name>_error_string`` otherwise."""
     if err == _NO_CONFIGURATION and no_fit is not None:
         raise NotImplementedError(f"{what}: {no_fit}: one item's samples "
                                   f"exceed a block's shared memory")
     if err != 0:
-        fn = getattr(lib, error_string)
+        fn = getattr(load(name), f"rslf_{name}_error_string")
         fn.restype = ctypes.c_char_p
-        raise RuntimeError(f"{what} launch failed: {fn(err).decode()}")
+        raise RuntimeError(f"{what} failed with CUDA error {err}: "
+                           f"{fn(err).decode()}")
 
 
-def read_plan(call, lib: ctypes.CDLL, error_string: str, what: str,
-              size: str) -> dict:
-    """A sweep launcher's plan as a dict.  ``call(out)`` fills five ints
-    and returns the CUDA error code; ``resident_warps`` (an SM's) is
-    threads x blocks_per_sm / 32."""
+class Entry:
+    """One C function of kernel library ``lib``, returning a CUDA error
+    code.  ``signature`` spells its arguments, spaces aside: ``p`` a
+    pointer (a tensor, None for NULL, or a ctypes buffer), ``i`` an int,
+    ``f`` a float, and a last ``s`` for the stream of a kernel launch.
+
+    A call binds the function at its first use.  A launch (``s``) takes
+    ``device=`` and appends that device's current stream; once it returned
+    no error it counts in ``launches[lib]``.  A host query (a launcher's
+    plan) takes no stream and counts nothing."""
+
+    def __init__(self, lib: str, symbol: str, signature: str):
+        self.lib, self.symbol = lib, symbol
+        self.signature = signature.replace(" ", "")
+        self.launch = self.signature.endswith("s")
+        self._key = (lib, symbol)
+
+    def _bind(self):
+        fn = getattr(load(self.lib), self.symbol)
+        fn.argtypes = [_CTYPES[c] for c in self.signature]
+        fn.restype = ctypes.c_int
+        _bound[self._key] = fn
+        return fn
+
+    def __call__(self, *args, device: Optional[torch.device] = None,
+                 no_fit: Optional[str] = None) -> None:
+        fn = _bound.get(self._key)
+        if fn is None:
+            fn = self._bind()
+        vals = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+                for a in args]
+        if self.launch:
+            vals.append(torch.cuda.current_stream(device).cuda_stream)
+        err = fn(*vals)
+        if err:
+            check(err, self.lib, self.symbol, no_fit)
+        if self.launch:
+            launches[self.lib] += 1
+
+
+def read_plan(entry: Entry, *args, size: str) -> dict:
+    """A sweep launcher's plan as a dict: ``entry(*args, out)`` fills five
+    ints; ``resident_warps`` (an SM's) is threads x blocks_per_sm / 32."""
     out = (ctypes.c_int * 5)()
-    check(call(out), lib, error_string, f"{what} plan", no_fit=size)
+    entry(*args, out, no_fit=size)
     keys = ("threads", "window_items", "smem_bytes", "blocks_per_sm", "sms")
     plan = dict(zip(keys, out))
     plan["resident_warps"] = plan["threads"] * plan["blocks_per_sm"] // 32
     return plan
-
-
-def stream_ptr(device: torch.device) -> ctypes.c_void_p:
-    """The current PyTorch CUDA stream of ``device`` as a C pointer."""
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def require(name: str, t: torch.Tensor, device: torch.device,

@@ -13,7 +13,6 @@ version's order by halves, walking the tree depth first as
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Tuple
 
 import numpy as np
@@ -140,13 +139,8 @@ def _program(S: int, dev: torch.device) -> torch.Tensor:
     return prog
 
 
-def _line_conf_fn():
-    lib = cuda_build.load("line_conf")
-    fn = lib.rslf_line_conf
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, P, P, P, P, I, I, I, I, P, P]
-    fn.restype = ctypes.c_int
-    return lib, fn
+_LINE_CONF = cuda_build.Entry("line_conf", "rslf_line_conf",
+                              "pppppp iiii p s")
 
 
 def line_confidence_cuda(ce_s_v_u: torch.Tensor, depth_v_u: torch.Tensor,
@@ -179,16 +173,6 @@ def line_confidence_cuda(ce_s_v_u: torch.Tensor, depth_v_u: torch.Tensor,
     cuda_build.require("mask", mask_v_u, dev, torch.bool)
     count = profiling.device_counter("line_conf.pixels", dev)
     out = torch.empty((V, U), dtype=DTYPE, device=dev)
-    lib, fn = _line_conf_fn()
-    err = fn(cuda_build.ptr(ce_s_v_u), cuda_build.ptr(depth_v_u),
-             cuda_build.ptr(k_best_v_s_u), cuda_build.ptr(mask_v_u),
-             cuda_build.ptr(_program(S, dev)), cuda_build.ptr(out), S, V, U,
-             int(s_hat), cuda_build.ptr(count), cuda_build.stream_ptr(dev))
-    cuda_build.check(err, lib, "rslf_line_conf_error_string",
-                     "line confidence")
-    line_confidence_cuda.launches += 1
+    _LINE_CONF(ce_s_v_u, depth_v_u, k_best_v_s_u, mask_v_u, _program(S, dev),
+               out, S, V, U, int(s_hat), count, device=dev)
     return out
-
-
-#: kernel launches since the count was last set to 0
-line_confidence_cuda.launches = 0

@@ -21,13 +21,9 @@ from .median import selective_median
 MAX_SIZE = 17
 
 
-def _median_fn():
-    lib = cuda_build.load("median")
-    fn = lib.rslf_selective_median
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P, P, P, I, I, I, I, F, F, P, P]
-    fn.restype = ctypes.c_int
-    return lib, fn
+_MEDIAN = cuda_build.Entry("median", "rslf_selective_median",
+                           "ppp iiii ff p s")
+_PLAN = cuda_build.Entry("median", "rslf_selective_median_plan", "ii p")
 
 
 def launch_plan(size: int, C: int) -> dict:
@@ -35,13 +31,8 @@ def launch_plan(size: int, C: int) -> dict:
     threads a block, tile rows and columns, channels a stage, dynamic
     shared memory, and the instantiation it runs (``size_template``,
     ``channel_template``; 0 = the generic one)."""
-    lib, _ = _median_fn()
-    fn = lib.rslf_selective_median_plan
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     out = (ctypes.c_int * 7)()
-    cuda_build.check(fn(size, C, out), lib, "rslf_median_error_string",
-                     "median plan")
+    _PLAN(size, C, out)
     keys = ("threads", "tile_v", "tile_u", "channels_per_stage",
             "smem_bytes", "size_template", "channel_template")
     return dict(zip(keys, out))
@@ -72,15 +63,6 @@ def selective_median_cuda(src_v_u: torch.Tensor, frame_v_u_c: torch.Tensor,
         out = torch.empty((V, U), dtype=DTYPE, device=dev)
         if out.numel() == 0:
             return out
-        lib, fn = _median_fn()
-        err = fn(cuda_build.ptr(src_v_u), cuda_build.ptr(mask_v_u),
-                 cuda_build.ptr(frame_v_u_c), V, U, C, size, f32(epsilon),
-                 chan_scale(C), cuda_build.ptr(out),
-                 cuda_build.stream_ptr(dev))
-        cuda_build.check(err, lib, "rslf_median_error_string", "median")
-        selective_median_cuda.launches += 1
+        _MEDIAN(src_v_u, mask_v_u, frame_v_u_c, V, U, C, size, f32(epsilon),
+                chan_scale(C), out, device=dev)
         return out
-
-
-#: kernel launches since the count was last set to 0
-selective_median_cuda.launches = 0

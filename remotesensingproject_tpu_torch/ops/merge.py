@@ -13,7 +13,6 @@ tensor and the kernel, bit for bit the same, on a CUDA tensor.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional
 
 import torch
@@ -63,14 +62,7 @@ def merge(state, s_hat: int, active: torch.Tensor, res: SweepResult,
                   state.rbar[s_hat], good if with_good else None)
 
 
-def _merge_fn():
-    lib = cuda_build.load("merge")
-    fn = lib.rslf_merge
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, P, P, P, ctypes.c_float, P, P, P, P, P, P, P, I, I,
-                   I, P]
-    fn.restype = ctypes.c_int
-    return lib, fn
+_MERGE = cuda_build.Entry("merge", "rslf_merge", "ppppp f ppppppp iii s")
 
 
 def merge_cuda(state, s_hat: int, active: torch.Tensor, res: SweepResult,
@@ -111,23 +103,14 @@ def merge_cuda(state, s_hat: int, active: torch.Tensor, res: SweepResult,
     rbar_in = res.rbar.contiguous()
     for name, t in (*outs.items(), ("res.rbar", rbar_in)):
         cuda_build.require(name, t, dev)
-    lib, fn = _merge_fn()
-    views = {k: t[s_hat] for k, t in planes.items()}
-    rbar = state.rbar[s_hat]
     conf = torch.empty((V, U), dtype=DTYPE, device=dev)
     good = torch.empty((V, U), dtype=torch.bool, device=dev) \
         if with_good else None
-    p = cuda_build.ptr
-    err = fn(p(active), p(outs["best_score"]), p(outs["score_mean"]),
-             p(outs["best_depth"]), p(rbar_in), f32(threshold),
-             p(views["ce"]), p(views["ce_mask"]), p(views["disp_conf"]),
-             p(views["best_depth"]), p(rbar), p(conf), p(good), V, U, C,
-             cuda_build.stream_ptr(dev))
-    cuda_build.check(err, lib, "rslf_merge_error_string", "merge")
-    merge_cuda.launches += 1
+    views = {k: t[s_hat] for k, t in planes.items()}
+    rbar = state.rbar[s_hat]
+    _MERGE(active, outs["best_score"], outs["score_mean"], outs["best_depth"],
+           rbar_in, f32(threshold), views["ce"], views["ce_mask"],
+           views["disp_conf"], views["best_depth"], rbar, conf, good, V, U, C,
+           device=dev)
     profiling.count("merge.launches")
     return Merged(views["best_depth"], views["ce_mask"], conf, rbar, good)
-
-
-#: kernel launches since the count was last set to 0
-merge_cuda.launches = 0

@@ -15,7 +15,6 @@ be wider than the targets (the (v, u) mesh's u-haloed sources).
 
 from __future__ import annotations
 
-import ctypes
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -32,14 +31,8 @@ MAX_TILE = 8192
 MAX_PAYLOADS = 3
 
 
-def _paint_fn():
-    lib = cuda_build.load("paint")
-    fn = lib.rslf_paint
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, F, F, F, I,
-                   P, P, P, P, P, P, I, P]
-    fn.restype = ctypes.c_int
-    return lib, fn
+_PAINT = cuda_build.Entry("paint", "rslf_paint",
+                          "ppppp iiiiiii fff i pppppp i s")
 
 
 def propagate_cuda(claim_s_v_u: torch.Tensor, frames_s_v_u_c: torch.Tensor,
@@ -82,22 +75,12 @@ def propagate_cuda(claim_s_v_u: torch.Tensor, frames_s_v_u_c: torch.Tensor,
         source_mask_v_u = source_mask_v_u.contiguous()
         cuda_build.require("depth", depth_f_v_u, dev)
         cuda_build.require("source mask", source_mask_v_u, dev, torch.bool)
-        lib, fn = _paint_fn()
         pairs = list(payloads) + [(None, None)] * (MAX_PAYLOADS
                                                    - len(payloads))
-        ptrs = [cuda_build.ptr(t) for tgt, src in pairs for t in (src, tgt)]
-        err = fn(cuda_build.ptr(claim_s_v_u), cuda_build.ptr(frames_s_v_u_c),
-                 cuda_build.ptr(depth_f_v_u), cuda_build.ptr(source_mask_v_u),
-                 cuda_build.ptr(rbar_v_u_c), S, V, U, C, Us, int(u_origin),
-                 int(s_hat),
-                 f32(slope_factor), chan_scale(C),
-                 float(np.float32(epsilon) ** 2), len(payloads), *ptrs,
-                 int(tile),
-                 cuda_build.stream_ptr(dev))
-        cuda_build.check(err, lib, "rslf_paint_error_string", "paint")
-        propagate_cuda.launches += 1
+        _PAINT(claim_s_v_u, frames_s_v_u_c, depth_f_v_u, source_mask_v_u,
+               rbar_v_u_c, S, V, U, C, Us, int(u_origin), int(s_hat),
+               f32(slope_factor), chan_scale(C),
+               float(np.float32(epsilon) ** 2), len(payloads),
+               *(t for tgt, src in pairs for t in (src, tgt)), int(tile),
+               device=dev)
         return claim_s_v_u, tuple(t for t, _ in payloads)
-
-
-#: kernel launches since the count was last set to 0
-propagate_cuda.launches = 0

@@ -25,8 +25,7 @@ shared-shift rule, so callers send it to the pixel or the tile sweep.
 
 from __future__ import annotations
 
-import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -155,17 +154,43 @@ def sweep_outputs(V: int, S: int, U: int, C: int, with_k_best: bool,
                        z(V, S, U) if with_k_best else None)
 
 
-def _rows_fn():
-    lib = cuda_build.load("sweep_rows")
-    fn = lib.rslf_sweep_rows
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P, I, I, I, P, I, F, F, I, I, F, F, I,
-                   P, P, P, P, P, P, P]
-    fn.restype = ctypes.c_int
-    plan = lib.rslf_sweep_rows_plan
-    plan.argtypes = [I, I, I, P]
-    plan.restype = ctypes.c_int
-    return lib, fn, plan
+def sample_step_counter(work_count: Optional[torch.Tensor],
+                        device) -> Optional[torch.Tensor]:
+    """The sweep's ``work_count`` operand: the caller's, else the counter
+    ``sweep.sample_steps`` while tracing (``utils.profiling``), else None."""
+    if work_count is None:
+        work_count = profiling.device_counter("sweep.sample_steps", device)
+    if work_count is not None:
+        cuda_build.require("work_count", work_count, device, torch.int64)
+    return work_count
+
+
+def compact(mask_v_u: torch.Tensor, S: int, C: int, with_k_best: bool
+            ) -> Tuple[SweepResult, torch.Tensor, int]:
+    """The zeroed outputs of a sweep over the pixels of ``mask_v_u``
+    ``[V, U]``, those pixels' flat indices (int32) and their number, which
+    the host reads: one sync, counted as ``syncs.sweep_compact``."""
+    V, U = mask_v_u.shape
+    with profiling.span("sweep.compact"):
+        out = sweep_outputs(V, S, U, C, with_k_best, mask_v_u.device)
+        act = torch.nonzero(mask_v_u.reshape(-1)).reshape(-1).to(torch.int32)
+        profiling.count("syncs.sweep_compact")
+    return out, act, act.numel()
+
+
+def kernel_scalars(U: int, C: int, params: DepthParams,
+                   u_valid: Optional[Tuple[int, int]] = None
+                   ) -> Tuple[float, int, int]:
+    """The kernel's ``a_coef`` (the mean shift's kernel scale) and the
+    window of valid sample columns, (0, U - 1) unless ``u_valid`` says."""
+    a_coef = f32(chan_scale(C) / (params.kernel_h * params.kernel_h))
+    lo, hi = (0, U - 1) if u_valid is None else u_valid
+    return a_coef, int(lo), int(hi)
+
+
+_SWEEP = cuda_build.Entry("sweep_rows", "rslf_sweep_rows",
+                          "p iii p i ff ii ff i pppppp s")
+_PLAN = cuda_build.Entry("sweep_rows", "rslf_sweep_rows_plan", "iii p")
 
 
 def launch_plan(S: int, C: int, with_k_best: bool = False) -> dict:
@@ -173,10 +198,8 @@ def launch_plan(S: int, C: int, with_k_best: bool = False) -> dict:
     without ``k_best``, on the current card: threads of a block, items of a
     window, bytes of shared memory a block, resident blocks an SM, SMs.
     Raises NotImplementedError when no block size fits."""
-    lib, _, plan = _rows_fn()
-    return cuda_build.read_plan(
-        lambda out: plan(S, C, int(with_k_best), out), lib,
-        "rslf_sweep_rows_error_string", "sweep_rows", f"S={S}, C={C}")
+    return cuda_build.read_plan(_PLAN, S, C, int(with_k_best),
+                                size=f"S={S}, C={C}")
 
 
 def sweep_pile_rows(epis_v_s_u_c: torch.Tensor, dmin: float, dmax: float,
@@ -210,35 +233,19 @@ def sweep_pile_rows(epis_v_s_u_c: torch.Tensor, dmin: float, dmax: float,
                                 s_hat, params, with_k_best)
 
     cuda_build.require("epis", epis_v_s_u_c, dev)
-    if work_count is None:
-        work_count = profiling.device_counter("sweep.sample_steps", dev)
-    if work_count is not None:
-        cuda_build.require("work_count", work_count, dev, torch.int64)
-    with profiling.span("sweep.compact"):
-        out = sweep_outputs(V, S, U, C, with_k_best, dev)
-        mask = activity_mask(V, U, row_active, active_v_u, dev)
-        act = torch.nonzero(mask.reshape(-1)).reshape(-1).to(torch.int32)
-        profiling.count("syncs.sweep_compact")
-        n_act = act.numel()
+    work_count = sample_step_counter(work_count, dev)
+    out, act, n_act = compact(
+        activity_mask(V, U, row_active, active_v_u, dev), S, C, with_k_best)
     if n_act == 0:
         return out
 
     with profiling.span("sweep.launch"):
         # the kernel computes the grid itself, operation for operation as
         # candidate_grid does
-        lib, fn, _ = _rows_fn()
-        a_coef = f32(chan_scale(C) / (params.kernel_h * params.kernel_h))
-        p = cuda_build.ptr
-        err = fn(p(epis_v_s_u_c), S, U, C, p(act), n_act, f32(dmin),
-                 f32(dmax), dim_d, int(s_hat), f32(params.slope_factor),
-                 a_coef, params.mean_shift_max_iter, p(out.best_score),
-                 p(out.score_mean), p(out.best_depth), p(out.rbar),
-                 p(out.k_best), p(work_count), cuda_build.stream_ptr(dev))
-        cuda_build.check(err, lib, "rslf_sweep_rows_error_string",
-                         "sweep_rows", no_fit=f"S={S}, C={C}")
-    sweep_pile_rows.launches += 1
+        a_coef, _, _ = kernel_scalars(U, C, params)
+        _SWEEP(epis_v_s_u_c, S, U, C, act, n_act, f32(dmin), f32(dmax),
+               dim_d, int(s_hat), f32(params.slope_factor), a_coef,
+               params.mean_shift_max_iter, out.best_score, out.score_mean,
+               out.best_depth, out.rbar, out.k_best, work_count,
+               device=dev, no_fit=f"S={S}, C={C}")
     return out
-
-
-#: kernel launches since the count was last set to 0
-sweep_pile_rows.launches = 0

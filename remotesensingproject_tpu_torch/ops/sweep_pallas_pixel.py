@@ -21,18 +21,17 @@ on a CUDA tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 from typing import Optional, Tuple
 
 import torch
 
 from ..config import DepthParams
-from ..types import DTYPE, chan_scale, f32
+from ..types import DTYPE, f32
 from ..utils import profiling
 from . import cuda_build
 from .sweep import SweepResult, sweep_pile
-from .sweep_pallas import sweep_outputs
+from .sweep_pallas import compact, kernel_scalars, sample_step_counter
 
 MAX_DIM_D = 1024
 #: mean-shift steps of fast mode (``config.DepthParams.fast``)
@@ -55,17 +54,9 @@ def mean_shift_iters(params: DepthParams) -> int:
     return params.mean_shift_max_iter
 
 
-def _sweep_fn():
-    lib = cuda_build.load("sweep_pixel")
-    fn = lib.rslf_sweep_pixel
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P, I, I, I, P, I, P, P, F, F, I, I, F, F, I, I, I, I,
-                   P, P, P, P, P, P, P]
-    fn.restype = ctypes.c_int
-    plan = lib.rslf_sweep_pixel_plan
-    plan.argtypes = [I, I, I, I, P]
-    plan.restype = ctypes.c_int
-    return lib, fn, plan
+_SWEEP = cuda_build.Entry("sweep_pixel", "rslf_sweep_pixel",
+                          "p iii p i pp ff ii ff iiii pppppp s")
+_PLAN = cuda_build.Entry("sweep_pixel", "rslf_sweep_pixel_plan", "iiii p")
 
 
 def launch_plan(S: int, C: int, with_k_best: bool = False,
@@ -75,10 +66,8 @@ def launch_plan(S: int, C: int, with_k_best: bool = False,
     current card: threads of a block, items of a window, bytes of shared
     memory a block, resident blocks an SM, SMs.  Raises
     NotImplementedError when no block size fits."""
-    lib, _, plan = _sweep_fn()
-    return cuda_build.read_plan(
-        lambda out: plan(S, C, int(with_k_best), int(nearest), out), lib,
-        "rslf_sweep_pixel_error_string", "sweep_pixel", f"S={S}, C={C}")
+    return cuda_build.read_plan(_PLAN, S, C, int(with_k_best), int(nearest),
+                                size=f"S={S}, C={C}")
 
 
 def sweep_pile_pixel(epis_v_s_u_c: torch.Tensor, dmin: float, dmax: float,
@@ -134,38 +123,18 @@ def sweep_pile_pixel(epis_v_s_u_c: torch.Tensor, dmin: float, dmax: float,
     if per_pixel:
         cuda_build.require("dmin_v_u", dmin_v_u, dev)
         cuda_build.require("dmax_v_u", dmax_v_u, dev)
-    if work_count is None:
-        work_count = profiling.device_counter("sweep.sample_steps", dev)
-    if work_count is not None:
-        cuda_build.require("work_count", work_count, dev, torch.int64)
-
-    with profiling.span("sweep.compact"):
-        out = sweep_outputs(V, S, U, C, with_k_best, dev)
-        act = torch.nonzero(active_v_u.reshape(-1)).reshape(-1).to(
-            torch.int32)
-        profiling.count("syncs.sweep_compact")
-        n_act = act.numel()
+    work_count = sample_step_counter(work_count, dev)
+    out, act, n_act = compact(active_v_u, S, C, with_k_best)
     if n_act == 0:
         return out
 
     with profiling.span("sweep.launch"):
-        lo, hi = (0, U - 1) if u_valid is None else u_valid
-        lib, fn, _ = _sweep_fn()
-        a_coef = f32(chan_scale(C) / (params.kernel_h * params.kernel_h))
-        p = cuda_build.ptr
-        err = fn(p(epis_v_s_u_c), S, U, C, p(act), n_act,
-                 p(dmin_v_u if per_pixel else None),
-                 p(dmax_v_u if per_pixel else None), f32(dmin), f32(dmax),
-                 dim_d, int(s_hat), f32(params.slope_factor), a_coef, iters,
-                 int(params.interpolation == "nearest"), int(lo), int(hi),
-                 p(out.best_score),
-                 p(out.score_mean), p(out.best_depth), p(out.rbar),
-                 p(out.k_best), p(work_count), cuda_build.stream_ptr(dev))
-        cuda_build.check(err, lib, "rslf_sweep_pixel_error_string",
-                         "sweep_pixel", no_fit=f"S={S}, C={C}")
-    sweep_pile_pixel.launches += 1
+        a_coef, lo, hi = kernel_scalars(U, C, params, u_valid)
+        _SWEEP(epis_v_s_u_c, S, U, C, act, n_act,
+               dmin_v_u if per_pixel else None,
+               dmax_v_u if per_pixel else None, f32(dmin), f32(dmax), dim_d,
+               int(s_hat), f32(params.slope_factor), a_coef, iters,
+               int(params.interpolation == "nearest"), lo, hi,
+               out.best_score, out.score_mean, out.best_depth, out.rbar,
+               out.k_best, work_count, device=dev, no_fit=f"S={S}, C={C}")
     return out
-
-
-#: kernel launches since the count was last set to 0
-sweep_pile_pixel.launches = 0

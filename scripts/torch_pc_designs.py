@@ -39,7 +39,6 @@ JSON line per design goes to standard output.  NAME picks designs by name
 from __future__ import annotations
 
 import argparse
-import ctypes
 import dataclasses
 import importlib.util
 import json
@@ -259,7 +258,7 @@ def main() -> int:
 
     def use(name):
         for k, (lib, _) in built[name].items():
-            cuda_build._libs[k] = ctypes.CDLL(lib)
+            cuda_build.use_library(k, lib)
 
     def runs(name):
         return [c for c in cases if c.startswith(("rgb", "lr"))

@@ -32,6 +32,7 @@ import torch
 import oracle
 from remotesensingproject_tpu_torch.config import DepthParams
 from remotesensingproject_tpu_torch.models.depth2d import Depth2DComputer
+from remotesensingproject_tpu_torch.ops import cuda_build
 from remotesensingproject_tpu_torch.ops.median import selective_median
 from remotesensingproject_tpu_torch.ops.median_pallas import (
     launch_plan as median_launch_plan, selective_median_cuda)
@@ -84,10 +85,10 @@ def test_rows_kernel_bitwise(dev, C, with_k, D):
     V, S, U, _ = epis.shape
     g = torch.Generator().manual_seed(C + D)
     active = (torch.rand((V, U), generator=g) < 0.5).to(dev)
-    n0 = sweep_pile_rows.launches
+    n0 = cuda_build.launches["sweep_rows"]
     got = sweep_pile_rows(epis, -1.0, 1.5, D, S // 2, DepthParams(),
                           with_k_best=with_k, active_v_u=active)
-    assert sweep_pile_rows.launches == n0 + 1
+    assert cuda_build.launches["sweep_rows"] == n0 + 1
     want = sweep_rows_plain(epis, candidate_grid(-1.0, 1.5, D, dev), S // 2,
                             DepthParams(), with_k_best=with_k)
     _same_sweep(got, want, active, with_k)
@@ -156,10 +157,10 @@ def test_tiles_kernel_bitwise(dev, C, masked, with_k):
         qlo, qhi = tile_quantized_bounds(active, lo, hi, (-1.0, 1.5))
         kw = dict(pdmin_v_u=lo, pdmax_v_u=hi)
         lo, hi = qlo, qhi
-    n0 = sweep_pile_tiles.launches
+    n0 = cuda_build.launches["sweep_tiles"]
     got = sweep_pile_tiles(epis, lo, hi, 24, S // 2, DepthParams(),
                            with_k_best=with_k, active_v_u=active, **kw)
-    assert sweep_pile_tiles.launches == n0 + 1
+    assert cuda_build.launches["sweep_tiles"] == n0 + 1
     want = sweep_pile(epis, lo, hi, 24, S // 2, DepthParams(),
                       with_k_best=with_k, **kw)
     _same_sweep(got, want, active, with_k)
@@ -178,10 +179,10 @@ def test_sweep_kernel_matches_plain(dev, C, per_pixel, D):
         c = torch.rand((V, U), generator=g).to(dev) * 1.7 - 0.6
         lo, hi = torch.clamp(c - 0.4, -1.0, 1.5), torch.clamp(c + 0.4, -1.0, 1.5)
     kw = dict(dmin_v_u=lo, dmax_v_u=hi) if per_pixel else {}
-    n0 = sweep_pile_pixel.launches
+    n0 = cuda_build.launches["sweep_pixel"]
     got = sweep_pile_pixel(epis, -1.0, 1.5, D, S // 2, DepthParams(), active,
                            **kw)
-    assert sweep_pile_pixel.launches == n0 + 1
+    assert cuda_build.launches["sweep_pixel"] == n0 + 1
     want = sweep_pile(epis, lo, hi, D, S // 2, DepthParams())
     m = active
     for name, atol in TOL.items():
@@ -275,17 +276,17 @@ def test_core_raises_when_no_block_size_fits(dev):
     epis = torch.rand((1, 2000, 8, 1), device=dev)
     plane = torch.zeros((1, 8), device=dev)
     active = torch.ones((1, 8), dtype=torch.bool, device=dev)
-    n0 = sweep_pile_pixel.launches, sweep_pile_tiles.launches
-    nr = sweep_pile_rows.launches
+    n0 = cuda_build.launches["sweep_pixel"], cuda_build.launches["sweep_tiles"]
+    nr = cuda_build.launches["sweep_rows"]
     with pytest.raises(NotImplementedError, match="shared memory"):
         sweep_pile_rows(epis, -1.0, 1.5, 5, 1000, DepthParams())
-    assert nr == sweep_pile_rows.launches
+    assert nr == cuda_build.launches["sweep_rows"]
     with pytest.raises(NotImplementedError, match="shared memory"):
         sweep_pile_pixel(epis, -1.0, 1.5, 5, 1000, DepthParams(), active)
     with pytest.raises(NotImplementedError, match="shared memory"):
         sweep_pile_tiles(epis, plane, plane + 1.0, 5, 1000, DepthParams(),
                          active_v_u=active)
-    assert n0 == (sweep_pile_pixel.launches, sweep_pile_tiles.launches)
+    assert n0 == (cuda_build.launches["sweep_pixel"], cuda_build.launches["sweep_tiles"])
 
 
 def _median_inputs(dev, V, U, C, seed, p_mask=0.6):
@@ -297,10 +298,10 @@ def _median_inputs(dev, V, U, C, seed, p_mask=0.6):
 
 
 def _median_same(dev, src, frame, mask, size, eps):
-    n0 = selective_median_cuda.launches
+    n0 = cuda_build.launches["median"]
     got = selective_median_cuda(src, frame, mask, size, eps)
     torch.cuda.synchronize()
-    assert selective_median_cuda.launches == n0 + 1
+    assert cuda_build.launches["median"] == n0 + 1
     want = selective_median(src, frame, mask, size, eps)
     assert torch.equal(got, want)
     return got
@@ -450,10 +451,10 @@ def test_paint_scatter_few_sources_and_none(dev, tile):
 
 def test_paint_rejects_bad_launch_shape(dev):
     scene = _paint_scene(3, 2, 16, 1, seed=0)
-    n0 = propagate_cuda.launches
+    n0 = cuda_build.launches["paint"]
     with pytest.raises(ValueError, match="tile"):
         _paint_both(dev, scene, 1, tile=10 ** 6)
-    assert propagate_cuda.launches == n0
+    assert cuda_build.launches["paint"] == n0
 
 
 def test_depth2d_on_card_matches_cpu(dev):
@@ -486,10 +487,10 @@ def test_pixel_k_best_bitwise(dev, C, per_pixel, D, interp):
         lo, hi = torch.full_like(lo, -1.0), torch.full_like(hi, 1.5)
     kw = dict(dmin_v_u=lo, dmax_v_u=hi) if per_pixel else {}
     p = DepthParams(interpolation=interp)
-    n0 = sweep_pile_pixel.launches
+    n0 = cuda_build.launches["sweep_pixel"]
     got = sweep_pile_pixel(epis, -1.0, 1.5, D, S // 2, p, active,
                            with_k_best=True, **kw)
-    assert sweep_pile_pixel.launches == n0 + 1
+    assert cuda_build.launches["sweep_pixel"] == n0 + 1
     want = sweep_pile(epis, lo, hi, D, S // 2, p, with_k_best=True)
     _same_sweep(got, want, active, True)
     assert not got.k_best.permute(0, 2, 1)[~active].any()
@@ -525,10 +526,10 @@ def test_tiles_nearest_bitwise(dev, C, masked, D):
         qlo, qhi = tile_quantized_bounds(active, lo, hi, (-1.0, 1.5))
         kw = dict(pdmin_v_u=lo, pdmax_v_u=hi)
         lo, hi = qlo, qhi
-    n0 = sweep_pile_tiles.launches
+    n0 = cuda_build.launches["sweep_tiles"]
     got = sweep_pile_tiles(epis, lo, hi, D, S // 2, NEAREST,
                            with_k_best=True, active_v_u=active, **kw)
-    assert sweep_pile_tiles.launches == n0 + 1
+    assert cuda_build.launches["sweep_tiles"] == n0 + 1
     want = sweep_pile(epis, lo, hi, D, S // 2, NEAREST, with_k_best=True,
                       **kw)
     _same_sweep(got, want, active, True)
@@ -594,10 +595,10 @@ def test_pixel_c3_full_depth_bitwise(dev, S, mode):
         window = (9, U - 13)
         active[:, :9] = False
         active[:, U - 12:] = False
-    n0 = sweep_pile_pixel.launches
+    n0 = cuda_build.launches["sweep_pixel"]
     got = sweep_pile_pixel(epis, -1.0, 1.5, D, s_hat, p, active,
                            with_k_best=with_k, u_valid=window, **kw)
-    assert sweep_pile_pixel.launches == n0 + 1
+    assert cuda_build.launches["sweep_pixel"] == n0 + 1
     want = sweep_pile(epis, lo, hi, D, s_hat, plain_p, with_k_best=with_k,
                       u_valid=window)
     _same_sweep(got, want, active, with_k)
@@ -622,9 +623,9 @@ def test_paint_payloads_bitwise(dev, C, n_payloads):
         fn(cl, frames, depth, rbar, sm, 4, slope, 0.1, list(zip(t, srcs)))
         return cl, t
 
-    n0 = propagate_cuda.launches
+    n0 = cuda_build.launches["paint"]
     cl_k, t_k = run(propagate_cuda)
-    assert propagate_cuda.launches == n0 + 1
+    assert cuda_build.launches["paint"] == n0 + 1
     cl_p, t_p = run(propagate)
     assert torch.equal(cl_k, cl_p)
     assert not torch.equal(cl_k, claim)
@@ -636,12 +637,12 @@ def test_paint_rejects_payload_counts(dev):
     claim, frames, depth, rbar, sm, conf, tgts, slope = (
         x.to(dev) if torch.is_tensor(x) else x
         for x in _paint_scene(3, 2, 16, 1, seed=0))
-    n0 = propagate_cuda.launches
+    n0 = cuda_build.launches["paint"]
     for pay in ([], [(tgts[0].to(dev), depth)] * 4):
         with pytest.raises(NotImplementedError, match="payloads"):
             propagate_cuda(claim, frames, depth, rbar, sm, 1, slope, 0.1,
                            pay)
-    assert propagate_cuda.launches == n0
+    assert cuda_build.launches["paint"] == n0
 
 
 @pytest.mark.parametrize("C,mode", [(1, "line"), (1, "fast"),
@@ -715,12 +716,13 @@ def test_depth1d_bitwise_on_both_routes(dev, C, D, params, wrapper):
 
     epi = _vol(C, S=9, V=4, U=96, seed=C + D).numpy()[1]
     epi[:, 30:38] = 0.01  # a shadow: holes in the edge mask
-    wrappers = {"pixel": sweep_pile_pixel, "tiles": sweep_pile_tiles,
-                "rows": sweep_pile_rows}
-    n0 = {k: w.launches for k, w in wrappers.items()}
+    libs = {"pixel": "sweep_pixel", "tiles": "sweep_tiles",
+            "rows": "sweep_rows"}
+    n0 = {k: cuda_build.launches[lib] for k, lib in libs.items()}
     comp = Depth1DComputer(epi, -1.0, 1.5, D, params=params, device=dev)
     got = comp.run()
-    moved = {k for k, w in wrappers.items() if w.launches != n0[k]}
+    moved = {k for k, lib in libs.items()
+             if cuda_build.launches[lib] != n0[k]}
     assert moved == {wrapper}
     want = _depth1d_plain(comp)
     assert got.edge_mask.any() and not got.edge_mask.all()
@@ -787,15 +789,15 @@ def test_sweep_u_valid_bitwise(dev, kind, C, per_pixel, u0):
     window = (hu - u0, U - 1 - u0 + hu)
     if kind.startswith("pixel"):
         kw = dict(dmin_v_u=lo_h, dmax_v_u=hi_h) if per_pixel else {}
-        n0 = sweep_pile_pixel.launches
+        n0 = cuda_build.launches["sweep_pixel"]
         got = sweep_pile_pixel(epis_h, -1.0, 1.5, D, s_hat, params, act_h,
                                u_valid=window, **kw)
-        assert sweep_pile_pixel.launches == n0 + 1
+        assert cuda_build.launches["sweep_pixel"] == n0 + 1
     else:
-        n0 = sweep_pile_tiles.launches
+        n0 = cuda_build.launches["sweep_tiles"]
         got = sweep_pile_tiles(epis_h, lo_h, hi_h, D, s_hat, params,
                                active_v_u=act_h, u_valid=window)
-        assert sweep_pile_tiles.launches == n0 + 1
+        assert cuda_build.launches["sweep_tiles"] == n0 + 1
     want = sweep_pile(epis_h, lo_h, hi_h, D, s_hat, params, u_valid=window)
     _same_sweep(got, want, act_h, False)
     whole = sweep_pile(epis, lo, hi, D, s_hat, params)
@@ -830,9 +832,9 @@ def test_paint_u_origin_bitwise(dev, C, n_payloads, u0):
            s_hat, slope, 0.1, list(zip(t, h[3:])), u_origin=pado)
         return cl, t
 
-    n0 = propagate_cuda.launches
+    n0 = cuda_build.launches["paint"]
     cl_k, t_k = run(propagate_cuda)
-    assert propagate_cuda.launches == n0 + 1
+    assert cuda_build.launches["paint"] == n0 + 1
     cl_p, t_p = run(propagate)
     assert torch.equal(cl_k, cl_p)
     assert torch.equal(cl_k, whole_cl[:, :, u0:u0 + Ul])

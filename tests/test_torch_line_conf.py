@@ -25,6 +25,7 @@ import torch
 import oracle
 from remotesensingproject_tpu_torch.config import DepthParams
 from remotesensingproject_tpu_torch.models import depth2d as td
+from remotesensingproject_tpu_torch.ops import cuda_build
 from remotesensingproject_tpu_torch.ops import line_confidence as lc
 from remotesensingproject_tpu_torch.utils import profiling
 
@@ -217,12 +218,12 @@ def test_line_confidence_on_cpu_is_the_plain_version():
     ce, depth, k = _line_inputs(9, 4, 32, "between", seed=5)
     mask = _mask("sparse", 4, 32, 5) | (depth > 0)
     want = lc.line_confidence(ce, depth, k, mask, 4)
-    n0 = lc.line_confidence_cuda.launches
+    n0 = cuda_build.launches["line_conf"]
     for fn in (lc.line_confidence_cuda, td._line_confidence):
         got = fn(ce, depth, k, mask, 4)
         assert torch.equal(torch.isnan(got), torch.isnan(want))
         assert torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))
-    assert lc.line_confidence_cuda.launches == n0
+    assert cuda_build.launches["line_conf"] == n0
 
 
 # ---- on the card ----
@@ -253,9 +254,9 @@ def test_line_conf_kernel_bitwise(dev, S, mask_kind):
         cpu = (ce, depth, k, mask)
         ce, depth, k, mask = (t.to(dev) for t in cpu)
         for s_hat in sorted({0, S // 2, S - 1}):
-            n0 = lc.line_confidence_cuda.launches
+            n0 = cuda_build.launches["line_conf"]
             got = lc.line_confidence_cuda(ce, depth, k, mask, s_hat)
-            assert lc.line_confidence_cuda.launches == n0 + 1
+            assert cuda_build.launches["line_conf"] == n0 + 1
             want = lc.line_confidence(ce, depth, k, mask, s_hat)
             _bitwise(got, want)
             _bitwise(got.cpu(), lc.line_confidence(*cpu, s_hat))
@@ -309,7 +310,7 @@ def test_line_conf_kernel_limits_and_refusals(dev):
     mask = torch.ones((V, U), dtype=torch.bool, device=dev)
     _bitwise(lc.line_confidence_cuda(ce, depth, k, mask, 1000),
              lc.line_confidence(ce, depth, k, mask, 1000))
-    n0 = lc.line_confidence_cuda.launches
+    n0 = cuda_build.launches["line_conf"]
     big = torch.zeros((lc.MAX_S + 1, V, U), device=dev)
     with pytest.raises(NotImplementedError, match="frames"):
         lc.line_confidence_cuda(
@@ -327,7 +328,7 @@ def test_line_conf_kernel_limits_and_refusals(dev):
     for args in bad:
         with pytest.raises(ValueError):
             lc.line_confidence_cuda(*args, 4)
-    assert lc.line_confidence_cuda.launches == n0
+    assert cuda_build.launches["line_conf"] == n0
 
 
 @pytest.mark.cuda
@@ -337,9 +338,9 @@ def test_line_pass_kernel_matches_plain(dev, monkeypatch):
     the post-sweep mask (the pass's code before the kernel); the states
     equal bit for bit."""
     comp, frames, carried, s_hat = _carried_line_state(dev)
-    n0 = lc.line_confidence_cuda.launches
+    n0 = cuda_build.launches["line_conf"]
     with_kernel = _one_pass(comp, frames, _copy(carried), s_hat)
-    assert lc.line_confidence_cuda.launches == n0 + 1
+    assert cuda_build.launches["line_conf"] == n0 + 1
     plain = _copy(carried)
 
     def plain_over_mask_new(ce, depth, k, mask, sh):

@@ -26,6 +26,7 @@ import torch
 import oracle
 from remotesensingproject_tpu_torch.config import DepthParams
 from remotesensingproject_tpu_torch.models import depth2d as td
+from remotesensingproject_tpu_torch.ops import cuda_build
 from remotesensingproject_tpu_torch.ops import merge as mg
 from remotesensingproject_tpu_torch.ops.sweep import SweepResult
 from remotesensingproject_tpu_torch.utils import profiling
@@ -131,9 +132,9 @@ def test_plain_route_is_the_inline_merge(C, kind, with_good):
     s_hat = 2
     want_state = _copy(state)
     want = _inline_merge(want_state, s_hat, active, res, 0.0, with_good)
-    n0 = mg.merge_cuda.launches
+    n0 = cuda_build.launches["merge"]
     got = mg.merge_cuda(state, s_hat, active, res, 0.0, with_good)
-    assert mg.merge_cuda.launches == n0
+    assert cuda_build.launches["merge"] == n0
     _same_merge(state, got, want_state, want)
     # every kind of pixel is there
     ok = res.best_score > 0.0
@@ -250,10 +251,10 @@ def test_kernel_bitwise(dev, C, kind, threshold):
             want_state = _copy(state)
             want = mg.merge(want_state, 2, active, res, threshold, with_good)
             got_state = _copy(state)
-            n0 = mg.merge_cuda.launches
+            n0 = cuda_build.launches["merge"]
             got = mg.merge_cuda(got_state, 2, active, res, threshold,
                                 with_good)
-            assert mg.merge_cuda.launches == n0 + 1
+            assert cuda_build.launches["merge"] == n0 + 1
             _same_merge(got_state, got, want_state, want)
             assert got.conf.untyped_storage().data_ptr() != \
                 got_state.disp_conf.untyped_storage().data_ptr()
@@ -282,7 +283,7 @@ def test_kernel_counts_launches(dev):
 @pytest.mark.cuda
 def test_kernel_refusals(dev):
     state, active, res = _on(dev, *_inputs(3, "sparse"))
-    n0 = mg.merge_cuda.launches
+    n0 = cuda_build.launches["merge"]
     bad = [
         (state, active[:, :8], res, 2),                       # shapes
         (state, active, res._replace(rbar=res.rbar[..., :1]), 2),
@@ -302,7 +303,7 @@ def test_kernel_refusals(dev):
     for st, act, r, s_hat in bad:
         with pytest.raises(ValueError):
             mg.merge_cuda(st, s_hat, act, r, 0.0)
-    assert mg.merge_cuda.launches == n0
+    assert cuda_build.launches["merge"] == n0
 
 
 @pytest.mark.cuda
@@ -314,14 +315,14 @@ def test_pass_kernel_matches_plain(dev, monkeypatch, score_version):
     repaints plane s_hat from ``conf``, which the merge wrote as it wrote
     that plane."""
     comp, frames, carried, s_hat = _pass_inputs(dev, score_version)
-    n0 = mg.merge_cuda.launches
+    n0 = cuda_build.launches["merge"]
     got = _one_pass(comp, frames, _state_copy(carried), s_hat)
-    assert mg.merge_cuda.launches == n0 + 1
+    assert cuda_build.launches["merge"] == n0 + 1
     monkeypatch.setattr(td, "merge_cuda", mg.merge)
     hooks = td.plain_stages(comp.epis, comp.dim_d, comp.params,
                             (comp.dmin, comp.dmax))
     want = _one_pass(comp, frames, _state_copy(carried), s_hat, **hooks)
-    assert mg.merge_cuda.launches == n0 + 1
+    assert cuda_build.launches["merge"] == n0 + 1
     active = carried.ce_mask[s_hat] & carried.claim[s_hat]
     assert (active & ~got.claim[s_hat]).any()
     assert not torch.equal(got.disp_conf[s_hat], carried.disp_conf[s_hat])

@@ -161,8 +161,8 @@ def test_rows_and_paint_raise_for_cuda_tensor_never_plain(monkeypatch,
     monkeypatch.setattr(propagation_pallas, "propagate",
                         lambda *a, **k: plain_calls.append(a))
     monkeypatch.setattr(cuda_build, "load", no_nvcc)
-    n0 = (sweep_pallas.sweep_pile_rows.launches,
-          propagation_pallas.propagate_cuda.launches)
+    n0 = (cuda_build.launches["sweep_rows"],
+          cuda_build.launches["paint"])
     plane = _OnCard(torch.zeros((2, 16)))
     mask = _OnCard(torch.ones((2, 16), dtype=torch.bool))
     with pytest.raises((RuntimeError, AssertionError)):
@@ -178,8 +178,8 @@ def test_rows_and_paint_raise_for_cuda_tensor_never_plain(monkeypatch,
                 _OnCard(torch.zeros((2, 16, 1))), mask, 2, 1.0, 0.1,
                 [(volume, plane), (volume, plane)])
     assert not plain_calls
-    assert n0 == (sweep_pallas.sweep_pile_rows.launches,
-                  propagation_pallas.propagate_cuda.launches)
+    assert n0 == (cuda_build.launches["sweep_rows"],
+                  cuda_build.launches["paint"])
 
 
 @pytest.mark.parametrize("case", ["pixel-nearest", "pixel-fast",
@@ -204,11 +204,8 @@ def test_line_fast_nearest_raise_for_cuda_tensor_never_plain(monkeypatch,
     monkeypatch.setattr(propagation_pallas, "propagate",
                         lambda *a, **k: plain_calls.append(a))
     monkeypatch.setattr(cuda_build, "load", no_nvcc)
-    wrappers = (sweep_pallas_pixel.sweep_pile_pixel,
-                sweep_pallas_perpixel.sweep_pile_tiles,
-                sweep_pallas.sweep_pile_rows,
-                propagation_pallas.propagate_cuda)
-    n0 = [w.launches for w in wrappers]
+    libs = ("sweep_pixel", "sweep_tiles", "sweep_rows", "paint")
+    n0 = [cuda_build.launches[lib] for lib in libs]
     kind, mode = case.split("-")
     params = DepthParams(interpolation="nearest" if mode == "nearest"
                          else "linear", fast=mode == "fast")
@@ -235,7 +232,7 @@ def test_line_fast_nearest_raise_for_cuda_tensor_never_plain(monkeypatch,
                 _OnCard(torch.zeros((2, 16, 1))), mask, 2, 1.0, 0.1,
                 [(volume, plane)] * 3)
     assert not plain_calls
-    assert n0 == [w.launches for w in wrappers]
+    assert n0 == [cuda_build.launches[lib] for lib in libs]
 
 
 def test_row_sweep_refuses_nearest():
@@ -262,7 +259,7 @@ def test_median_raises_for_cuda_tensor_never_plain(monkeypatch):
     monkeypatch.setattr(median_pallas, "selective_median",
                         lambda *a, **k: plain_calls.append(a))
     monkeypatch.setattr(cuda_build, "load", no_nvcc)
-    n0 = median_pallas.selective_median_cuda.launches
+    n0 = cuda_build.launches["median"]
     plane = _OnCard(torch.zeros((2, 16)))
     mask = _OnCard(torch.ones((2, 16), dtype=torch.bool))
     frame = _OnCard(torch.zeros((2, 16, 1)))
@@ -277,7 +274,7 @@ def test_median_raises_for_cuda_tensor_never_plain(monkeypatch):
     with pytest.raises(NotImplementedError, match="1..17"):
         median_pallas.selective_median_cuda(plane, frame, mask, 18, 0.1)
     assert not plain_calls
-    assert n0 == median_pallas.selective_median_cuda.launches
+    assert n0 == cuda_build.launches["median"]
 
 
 @pytest.mark.parametrize("with_good", [False, True])
@@ -297,7 +294,7 @@ def test_merge_raises_for_cuda_tensor_never_plain(monkeypatch, with_good):
     monkeypatch.setattr(merge, "merge",
                         lambda *a, **k: plain_calls.append(a))
     monkeypatch.setattr(cuda_build, "load", no_nvcc)
-    n0 = merge.merge_cuda.launches
+    n0 = cuda_build.launches["merge"]
     volume = _OnCard(torch.zeros((5, 2, 16)))
     state = types.SimpleNamespace(
         ce=volume, ce_mask=_OnCard(torch.zeros((5, 2, 16), dtype=torch.bool)),
@@ -313,7 +310,7 @@ def test_merge_raises_for_cuda_tensor_never_plain(monkeypatch, with_good):
         merge.merge_cuda(state, 2, _OnCard(torch.ones((2, 15), dtype=bool)),
                          res, 0.0, with_good)
     assert not plain_calls
-    assert n0 == merge.merge_cuda.launches
+    assert n0 == cuda_build.launches["merge"]
 
 
 def _write_frames(vol, folder):
