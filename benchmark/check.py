@@ -23,6 +23,27 @@ benchmark's hooks on the port's pass loop, and the plain reference
   reference's fusion of the replayed levels, which also ties the replay to
   the window.
 
+The sampled sweep follows the route the program's ``sweep_pass`` takes
+(``models/depth2d.py:122-171`` of the port), decided from the scene and the
+level alone, in this order:
+
+* C in {1, 3} and D <= 1024: the pixel kernel, each pixel on its own grid
+  with its own sample positions (the reference's pixel rule; fast mode caps
+  its mean shift);
+* nearest interpolation: the tile kernel on each pixel's own grid (the
+  level's bounds at the uniform level), the same pixel rule;
+* the uniform level (level 0, no per-pixel bounds): the row kernel, one
+  shift a (frame, candidate) for every column (the reference's row rule);
+* a bounds-edited level: the tile kernel in tile mode, the default of
+  ``FineToCoarse`` and of the CLI: a grid shared by each 128-column tile,
+  aligned at u = 0, from the least and greatest bound of the pass's active
+  pixels in it (``reference.tile_grid``; the JAX package's
+  ``models/depth2d.py:405-414``), each pixel's own range masking the
+  candidates that may win and count in the mean.
+
+The row and the tile kernel never cap the mean shift.  The control follows
+the same route.
+
 The reference reads the program's state only where it follows a pass from
 it; it works out the volumes, the bounds, the validity and every pass's
 result itself.  ``control=True`` also puts the reference computed in
@@ -39,6 +60,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from . import counts
 from . import reference as ref
 from .hooks import Patches
 
@@ -65,6 +87,9 @@ SWEEP_PIXELS = 2048
 LEVEL0_DRAWS = 2
 #: two floats agree within REL of the reference's magnitude plus ABS
 REL, ABS = 1e-5, 1e-7
+#: the channel counts and the most candidates the pixel kernel takes
+#: (``ops/sweep_pallas_pixel.py`` ``MAX_DIM_D`` of the port)
+PIXEL_KERNEL_C, PIXEL_KERNEL_MAX_D = (1, 3), 1024
 
 
 def differs(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -330,6 +355,17 @@ class Check:
         out["rbar"] = merged["rbar"]
         return out
 
+    def sweep_route(self) -> str:
+        """The route of this level's sweeps (see the module's docstring):
+        ``"pixel"`` (each pixel's own grid and positions), ``"row"`` or
+        ``"tile"``."""
+        sc = self.scene
+        if ((sc.vol.shape[-1] in PIXEL_KERNEL_C
+             and sc.D <= PIXEL_KERNEL_MAX_D)
+                or sc.interpolation == "nearest"):
+            return "pixel"
+        return "row" if self.bounds is None else "tile"
+
     def _check_sweep(self, active, s_hat, res):
         sc = self.scene
         V, U = active.shape
@@ -347,8 +383,17 @@ class Check:
             lo = self.bounds[0][s_hat].reshape(-1)[px]
             hi = self.bounds[1][s_hat].reshape(-1)[px]
         line = sc.score_version == "line"
+        route = self.sweep_route()
         kw = dict(D=sc.D, s_hat=s_hat, slope=self.slope, steps=sc.steps,
                   interpolation=sc.interpolation, with_k=line)
+        if route == "row":
+            kw.update(rule="row", steps=counts.MEAN_SHIFT_STEPS)
+        elif route == "tile":
+            glo, ghi = ref.tile_grid(active, self.bounds[0][s_hat],
+                                     self.bounds[1][s_hat],
+                                     (sc.dmin, sc.dmax))
+            kw.update(plo=lo, phi=hi, steps=counts.MEAN_SHIFT_STEPS)
+            lo, hi = glo.reshape(-1)[px], ghi.reshape(-1)[px]
         want = ref.sweep_pixels(self.epis, v, u, lo, hi, **kw)
         got = {"best_depth": res["best_depth"][v, u],
                "best_score": res["best_score"][v, u],
@@ -361,7 +406,7 @@ class Check:
         if self.control:
             c = ref.sweep_pixels(self.epis_ctl, v, u, lo, hi, dtype=BF16,
                                  **kw)
-            best = torch.argmax(c["score"], dim=1)
+            best = torch.argmax(competing(c), dim=1)
             take = torch.arange(best.numel(), device=best.device)
             cgot = {"best_depth": c["cand"][take, best],
                     "best_score": c["score"][take, best],
@@ -400,16 +445,26 @@ def pre_plane(pre: dict, name: str, s_hat: int) -> torch.Tensor:
     return pre[name][s_hat] if name == "rbar" else pre[name]
 
 
+def competing(res: dict) -> torch.Tensor:
+    """A sweep's scores ``[P, D]``, -inf at the candidates that may not win
+    (outside a pixel's allowed range in tile mode)."""
+    if res.get("allowed") is None:
+        return res["score"]
+    return torch.where(res["allowed"], res["score"],
+                       torch.full_like(res["score"], float("-inf")))
+
+
 def sweep_readings(got: dict, want: dict, D: int):
     """(gap, err) of one sweep's picks at sampled pixels against the
     reference's curves: how far below the reference's best score the
     reference's score at the program's pick lies, and how far the
     program's score, mean score, r_bar, depth (in grid steps) and k_best
-    lie from the reference's at that pick."""
+    lie from the reference's at that pick.  In tile mode only the allowed
+    candidates compete: a pick outside them reads inf."""
     cand = want["cand"]
     idx = torch.argmin(torch.abs(cand - got["best_depth"][:, None]), dim=1)
     take = torch.arange(idx.numel(), device=idx.device)
-    score = want["score"]
+    score = competing(want)
     gap = float(torch.max(score.max(dim=1).values - score[take, idx]))
     step = torch.abs(cand[:, -1] - cand[:, 0]) / max(D - 1, 1)
     step = torch.where(step > 0, step, torch.ones_like(step))

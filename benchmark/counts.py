@@ -14,6 +14,17 @@ the same work whatever implements the kernel:
   (``ops/sweep.py`` ``_radiances``: I = u + ((s_hat - s) D[d]) slope,
   linear: floor(I) >= 0 and ceil(I) <= U - 1; nearest: the rounded I in
   [0, U - 1]);
+* the row sweep's (``ops/sweep_pallas.py`` ``_row_samples``): the same
+  operations a valid sample and step, a sample valid under the row rule
+  (one shift ((s_hat - s) D[d]) slope for every column, f0 its floor, t
+  the rest: u >= -f0 and u <= U - 1 - (f0 + [t > 0])), on the level's
+  uniform grid;
+* the tile sweep's in tile mode (``ops/sweep.py`` ``sweep_pile`` with
+  ``pdmin_v_u``, ``csrc/sweep_pc.cuh``'s masked mode, which runs the
+  allowed candidates only): the valid samples of each pixel's candidates
+  on its tile's grid that lie in its allowed range [plo - step, phi +
+  step], step = (hi - lo) / (D - 1); the row and the tile sweep never cap
+  the mean shift (:data:`MEAN_SHIFT_STEPS` steps);
 * the median's bytes: ``chip_smoke.py:826``, each input read once and the
   output written once (source float32, mask uint8, frame C float32, out
   float32).
@@ -89,10 +100,14 @@ def sweep_valid_samples(active_v_u: torch.Tensor, S: int, s_hat: int,
                         interpolation: str,
                         dmin_v_u: Optional[torch.Tensor] = None,
                         dmax_v_u: Optional[torch.Tensor] = None,
-                        chunk: int = 4096) -> int:
+                        chunk: int = 4096,
+                        pdmin_v_u: Optional[torch.Tensor] = None,
+                        pdmax_v_u: Optional[torch.Tensor] = None) -> int:
     """Valid samples of one sweep call over the ``active_v_u`` pixels
     ``[V, U]``, each on the uniform grid [dmin, dmax] or, given
-    ``dmin_v_u`` / ``dmax_v_u``, on its own."""
+    ``dmin_v_u`` / ``dmax_v_u``, on its own; given the allowed ranges
+    ``pdmin_v_u`` / ``pdmax_v_u`` (the tile mode, ``dmin_v_u`` /
+    ``dmax_v_u`` its tiles' grid), of the allowed candidates only."""
     V, U = active_v_u.shape
     flat = torch.nonzero(active_v_u.reshape(-1)).reshape(-1)
     total = 0
@@ -107,8 +122,38 @@ def sweep_valid_samples(active_v_u: torch.Tensor, S: int, s_hat: int,
         else:
             lo = dmin_v_u.reshape(-1)[px]
             hi = dmax_v_u.reshape(-1)[px]
-        pos = positions(u, candidates(lo, hi, D), S, s_hat, slope)
-        total += int(valid_samples(pos, U, interpolation).sum())
+        delta = candidates(lo, hi, D)
+        ok = valid_samples(positions(u, delta, S, s_hat, slope), U,
+                           interpolation)
+        if pdmin_v_u is not None:
+            drange = (hi - lo)[:, None]
+            step = drange / torch.full_like(drange, float(D - 1))
+            allowed = ((delta >= pdmin_v_u.reshape(-1)[px][:, None] - step)
+                       & (delta <= pdmax_v_u.reshape(-1)[px][:, None] + step))
+            ok = ok & allowed[:, :, None]
+        total += int(ok.sum())
+    return total
+
+
+def row_valid_samples(active_v_u: torch.Tensor, S: int, s_hat: int, D: int,
+                      dmin: float, dmax: float, slope: float) -> int:
+    """Valid samples of one row-sweep call over the ``active_v_u`` pixels
+    ``[V, U]`` on the uniform grid [dmin, dmax], under the row rule."""
+    V, U = active_v_u.shape
+    dev = active_v_u.device
+    per_column = active_v_u.sum(dim=0).to(torch.int64)               # [U]
+    lo = torch.full((1,), f32(dmin), dtype=torch.float32, device=dev)
+    hi = torch.full((1,), f32(dmax), dtype=torch.float32, device=dev)
+    ds = float(s_hat) - torch.arange(S, dtype=torch.float32, device=dev)
+    u = torch.arange(U, device=dev)[None, :]
+    total = 0
+    for delta in candidates(lo, hi, D)[0]:
+        shift = ds * delta * f32(slope)                               # [S]
+        f0 = torch.floor(shift)
+        i0 = f0.to(torch.int64)[:, None]
+        last = (U - 1) - (i0 + (shift - f0 > 0).to(torch.int64)[:, None])
+        valid = (u >= -i0) & (u <= last)                              # [S, U]
+        total += int((valid.to(torch.int64) * per_column).sum())
     return total
 
 

@@ -8,6 +8,15 @@ as one scatter of the smallest qualifying source column per target, the
 reference's first-writer-wins rule (core.hpp:1083-1129), and the sweep is
 written per pixel (the pixels a check samples) instead of densely.
 
+The sweep follows each of the program's three routes (``check.py`` says
+which one a pass takes): the pixel rule, each pixel on its own grid with
+its own sample positions (``ops/sweep.py``); the row rule, one shift a
+(frame, candidate) for every column of a uniform level
+(``ops/sweep_pallas.py`` ``_row_samples``); and the tile mode, a grid shared
+by each 128-column tile (:func:`tile_grid`) with every pixel's own range
+masking the candidates (``ops/sweep.py`` ``sweep_pile`` with
+``pdmin_v_u``).  The last two are written from those rules, not copied.
+
 Every function takes ``dtype``: float32 is the reference; the control
 runs the same functions in bfloat16 (each input cast, each operation
 rounded to it), the nearest precision below the configuration's.
@@ -210,7 +219,13 @@ def edge_confidence(e: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return ce, ce > PARAMS["edge_score_threshold"]
 
 
-# -- the sweep, per pixel (sweep.py) ----------------------------------------
+# -- the sweep, per pixel (sweep.py, sweep_pallas.py,
+#    sweep_pallas_perpixel.py) -----------------------------------------------
+
+#: columns of a tile of the tile mode's grid, tiles aligned at u = 0 (the
+#: JAX package's TPU lane width, its models/depth2d.py:405-414)
+TILE = 128
+
 
 def _sum_s(x: torch.Tensor, axis: int) -> torch.Tensor:
     """Sum over ``axis`` sequentially from index 0 (the kernels' order)."""
@@ -220,22 +235,63 @@ def _sum_s(x: torch.Tensor, axis: int) -> torch.Tensor:
     return acc
 
 
+def tile_grid(active: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+              d_bounds: Tuple[float, float]):
+    """The tile mode's grid bounds ``[V, U]`` of a pass over the
+    ``active`` pixels ``[V, U]`` whose ranges are [``lo``, ``hi``]: each
+    tile of :data:`TILE` columns, aligned at u = 0, takes the least ``lo``
+    and the greatest ``hi`` of its active pixels, and a tile with none the
+    level's bounds ``d_bounds``."""
+    V, U = active.shape
+    n = -(-U // TILE)
+    pad = n * TILE - U
+    has = F.pad(active, (0, pad)).reshape(V, n, TILE).any(dim=2)
+
+    def reduce(x, lowest):
+        fill = float("inf") if lowest else float("-inf")
+        xt = F.pad(torch.where(active, x, torch.full_like(x, fill)),
+                   (0, pad), value=fill).reshape(V, n, TILE)
+        red = xt.amin(dim=2) if lowest else xt.amax(dim=2)
+        red = torch.where(has, red, torch.full_like(
+            red, f32(d_bounds[0] if lowest else d_bounds[1])))
+        return red.repeat_interleave(TILE, dim=1)[:, :U]
+
+    return reduce(lo, True), reduce(hi, False)
+
+
 def sweep_pixels(epis: torch.Tensor, v: torch.Tensor, u: torch.Tensor,
                  lo: torch.Tensor, hi: torch.Tensor, D: int, s_hat: int,
                  slope: float, steps: int, interpolation: str = "linear",
-                 dtype=F32, with_k: bool = False, chunk: int = 512):
+                 dtype=F32, with_k: bool = False, chunk: int = 512,
+                 rule: str = "pixel", plo: Optional[torch.Tensor] = None,
+                 phi: Optional[torch.Tensor] = None):
     """The sweep of pixels (``v``, ``u``) ``[P]`` of a normalized volume
     ``[V, S, U, C]`` on their grids [``lo``, ``hi``] ``[P]``: every
     candidate's score, the mean score, every candidate's r_bar and (with
     ``with_k``) its last kernel values.  Returns a dict of ``cand`` [P,
     D], ``score`` [P, D], ``mean`` [P], ``rbar`` [P, D, C], ``k`` [P, D, S]
-    (float32, whatever ``dtype`` computed them)."""
+    (float32, whatever ``dtype`` computed them) and ``allowed`` [P, D]
+    (None without ``plo``).
+
+    ``rule`` places the samples: ``"pixel"``, I = u + ((s_hat - s) D[d])
+    slope for each pixel (``ops/sweep.py`` ``_radiances``); ``"row"``, the
+    shift ((s_hat - s) D[d]) slope shared by every column, f0 its floor
+    and t = shift - f0: column u is valid where u >= -f0 and u <= U - 1 -
+    (f0 + [t > 0]), and reads a where t = 0, else (1 - t) a + t b, with a
+    and b at columns u + f0 and u + f0 + 1 (``ops/sweep_pallas.py``
+    ``_row_samples``; linear interpolation only).
+
+    ``plo``, ``phi`` ``[P]``: the tile mode's allowed ranges
+    (``ops/sweep.py`` ``sweep_pile``'s ``pdmin_v_u``).  With step = (hi -
+    lo) / (D - 1), a candidate outside [plo - step, phi + step] can
+    neither win nor count: the mean is (sum * D / max(n_allowed, 1)) / D
+    over the allowed ones."""
     V, S, U, C = epis.shape
     dev = epis.device
     flat = _fl(epis, dtype).reshape(-1)
     a_coef = f32(chan_scale(C) / (PARAMS["kernel_h"] ** 2))
     ds = float(s_hat) - torch.arange(S, dtype=dtype, device=dev)
-    out = {k: [] for k in ("cand", "score", "mean", "rbar", "k")}
+    out = {k: [] for k in ("cand", "score", "mean", "rbar", "k", "allowed")}
     for i in range(0, v.numel(), chunk):
         vp, up = v[i:i + chunk], u[i:i + chunk]
         P = vp.numel()
@@ -244,8 +300,8 @@ def sweep_pixels(epis: torch.Tensor, v: torch.Tensor, u: torch.Tensor,
         den = torch.full_like(drange, float(D - 1))
         dd = torch.arange(D, dtype=dtype, device=dev)[None, :]
         delta = lo_p[:, None] + (drange * dd) / den                 # [P, D]
-        idx = (up.to(dtype)[:, None, None]
-               + ds[None, None, :] * delta[:, :, None] * f32(slope))
+        shift = ds[None, None, :] * delta[:, :, None] * f32(slope)  # [P,D,S]
+        idx = up.to(dtype)[:, None, None] + shift
         row = ((vp[:, None, None] * S + torch.arange(S, device=dev)
                 [None, None, :]) * U)                              # [P, 1, S]
         cidx = torch.arange(C, device=dev)
@@ -254,7 +310,16 @@ def sweep_pixels(epis: torch.Tensor, v: torch.Tensor, u: torch.Tensor,
             col = col.to(torch.int64).clamp(0, U - 1)
             return flat[((row + col) * C)[..., None] + cidx]       # [P,D,S,C]
 
-        if interpolation == "nearest":
+        if rule == "row":
+            f0 = torch.floor(shift)
+            t = shift - f0
+            i0 = f0.to(torch.int64)
+            uc = up[:, None, None]
+            valid = (uc >= -i0) & (uc <= (U - 1) - (i0 + (t > 0).long()))
+            a, b = gather(uc + i0), gather(uc + i0 + 1)
+            tt = t[..., None]
+            val = torch.where(tt == 0, a, (1.0 - tt) * a + tt * b)
+        elif interpolation == "nearest":
             ri = torch.sign(idx) * torch.floor(torch.abs(idx) + 0.5)
             valid = (ri >= 0) & (ri <= U - 1)
             val = gather(ri)
@@ -280,7 +345,17 @@ def sweep_pixels(epis: torch.Tensor, v: torch.Tensor, u: torch.Tensor,
             sum_rk = _sum_s(valpos * k[..., None], 2)
             rbar = torch.where(sum_k > 0, sum_rk / sum_k, zero)
         score = torch.where(card > 0, _sum_s(k, 2) / card, zero)   # [P, D]
-        total = _sum_s(score, 1)
+        if plo is None:
+            total = _sum_s(score, 1)
+        else:
+            step = drange / den
+            allowed = ((delta >= _fl(plo[i:i + chunk], dtype)[:, None] - step)
+                       & (delta <= _fl(phi[i:i + chunk], dtype)[:, None]
+                          + step))
+            n_allowed = _sum_s(allowed.to(dtype), 1)
+            total = (_sum_s(torch.where(allowed, score, zero), 1) * float(D)
+                     / torch.clamp_min(n_allowed, 1.0))
+            out["allowed"].append(allowed)
         out["mean"].append(div(total, float(D)).float())
         out["cand"].append(delta.float())
         out["score"].append(score.float())

@@ -7,6 +7,12 @@ numpy draws, bit for bit).  The benchmark keeps its own copy so that the
 inputs it times cannot change with the program; a test holds the copy
 against the program's generators.
 
+``synthetic_sequence_bands`` is the four-band scene of ``chip_smoke.py``
+(its ``synthetic_sequence`` with ``gains=BAND_GAINS``, phase 5): the gray
+scene's draws, each layer's radiance scaled by one gain a band, with a
+frozen copy of its :data:`BAND_GAINS`.  The gains are made up for that
+scene, not taken from a published sensor.
+
 A configuration file names its generator under ``"scene"`` (see
 :data:`GENERATORS`); the seed of a run is the generator's seed.
 """
@@ -15,6 +21,13 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+#: per-layer gains of the four bands (blue, green, red, near-infrared),
+#: ``chip_smoke.py``'s ``BAND_GAINS``
+BAND_GAINS = np.array([[1.00, 0.85, 0.70, 0.95], [0.60, 0.75, 0.90, 1.00],
+                       [0.90, 1.00, 0.65, 0.55], [0.70, 0.60, 0.95, 0.80],
+                       [0.85, 0.95, 0.80, 0.60], [0.55, 0.70, 0.60, 0.90]],
+                      np.float32)
 
 
 def _layered_texture(rng, S, U, dmin, dmax):
@@ -63,6 +76,20 @@ def synthetic_sequence(S, V, U, seed, dmin, dmax, device):
     return vol, disps[owner].astype(np.float32)
 
 
+def synthetic_sequence_bands(S, V, U, seed, dmin, dmax, device):
+    """The four-band version: the gray scene's draws from the seed, in its
+    order (the layers, then the row modulation x 0.15), and the volume
+    ``val0 * BAND_GAINS[owner] + rowmod``, ``[V, S, U, 4]`` float32 on
+    ``device``, with the true disparity ``[S, U]`` float32 (numpy)."""
+    rng = np.random.default_rng(seed)
+    disps, owner, val0 = _layered_texture(rng, S, U, dmin, dmax)
+    rowmod = rng.random((V,), dtype=np.float32) * 0.15
+    vol = (torch.as_tensor(val0, device=device)[None, :, :, None]
+           * torch.as_tensor(BAND_GAINS[owner], device=device)[None]
+           + torch.as_tensor(rowmod, device=device)[:, None, None, None])
+    return vol, disps[owner].astype(np.float32)
+
+
 def synthetic_sequence_rgb(S, V, U, seed, dmin, dmax, device):
     """The RGB version: per-layer RGB gains, quantised to uint8 as the
     reference reads the scene back from 8-bit PNGs, ``[V, S, U, 3]`` uint8
@@ -81,7 +108,8 @@ def synthetic_sequence_rgb(S, V, U, seed, dmin, dmax, device):
 
 
 GENERATORS = {"synthetic_sequence": synthetic_sequence,
-              "synthetic_sequence_rgb": synthetic_sequence_rgb}
+              "synthetic_sequence_rgb": synthetic_sequence_rgb,
+              "synthetic_sequence_bands": synthetic_sequence_bands}
 
 
 def make_scene(config: dict, seed: int, device):

@@ -69,3 +69,68 @@ def test_median_bytes_from_shapes(V, U, C):
 def test_roofline_needs_device_time():
     assert counts.roofline_pct(1.0, 0.0) is None
     assert counts.roofline_pct(0.25, 1.0) == 25.0
+
+
+def _active(rng, V, U):
+    active = torch.as_tensor(rng.random((V, U)) < 0.5)
+    active[0, :140] = False
+    return active
+
+
+@pytest.mark.parametrize("slope", [1.0, 0.5625])
+def test_row_count_is_the_plain_row_sweeps_valid_samples(slope):
+    from remotesensingproject_tpu_torch.ops.sweep_pallas import (
+        _row_samples, candidate_grid)
+    rng = np.random.default_rng(5)
+    V, U, S, D, s_hat = 3, 300, 9, 13, 4
+    active = _active(rng, V, U)
+    dvec = candidate_grid(-1.0, 4.0, D, "cpu")
+    ds = float(s_hat) - torch.arange(S, dtype=torch.float32)
+    u = torch.arange(U)[None, :]
+    want = 0
+    for d in range(D):
+        _, valid = _row_samples(torch.zeros((1, S, U, 1)), dvec[d], ds, u,
+                                counts.f32(slope))
+        want += int((valid[None] & active[:, None, :]).sum())
+    got = counts.row_valid_samples(active, S, s_hat, D, -1.0, 4.0, slope)
+    assert got == want
+    # the row rule's count is the pixel rule's up to rounding, not always
+    # to the sample
+    near = counts.sweep_valid_samples(active, S, s_hat, D, -1.0, 4.0, slope,
+                                      "linear")
+    assert abs(got - near) <= 0.001 * got
+
+
+@pytest.mark.parametrize("interpolation", ["linear", "nearest"])
+def test_tile_count_is_the_plain_masked_sweeps_allowed_samples(
+        interpolation):
+    from remotesensingproject_tpu_torch.ops.sweep import _radiances
+    from remotesensingproject_tpu_torch.ops.sweep_pallas_perpixel import \
+        tile_quantized_bounds
+    rng = np.random.default_rng(6)
+    V, U, S, D, s_hat, slope = 3, 300, 9, 13, 4, 0.5
+    active = _active(rng, V, U)
+    lo = torch.as_tensor(rng.uniform(-1.0, 2.0, (V, U)).astype(F))
+    hi = lo + torch.as_tensor(rng.uniform(0.0, 2.0, (V, U)).astype(F))
+    glo, ghi = tile_quantized_bounds(active, lo, hi, (-1.0, 4.0))
+    # sweep_pile's masked mode, candidate by candidate
+    drange = ghi - glo
+    den = torch.full_like(drange, float(D - 1))
+    tol = drange / den
+    ds = float(s_hat) - torch.arange(S, dtype=torch.float32)
+    u = torch.arange(U, dtype=torch.float32)
+    epis = torch.zeros((V, S, U, 1))
+    want = every = 0
+    for d in range(D):
+        delta = glo + (drange * float(d)) / den
+        _, _, valid = _radiances(epis, delta, ds, u, counts.f32(slope),
+                                 interpolation)
+        allowed = (delta >= lo - tol) & (delta <= hi + tol) & active
+        want += int((valid & allowed[:, None, :]).sum())
+        every += int((valid & active[:, None, :]).sum())
+    got = counts.sweep_valid_samples(active, S, s_hat, D, -1.0, 4.0, slope,
+                                     interpolation, glo, ghi, chunk=100,
+                                     pdmin_v_u=lo, pdmax_v_u=hi)
+    assert got == want < every
+    assert counts.sweep_valid_samples(active, S, s_hat, D, -1.0, 4.0, slope,
+                                      interpolation, glo, ghi) == every
