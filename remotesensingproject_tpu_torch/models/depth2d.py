@@ -136,12 +136,15 @@ def sweep_pass(epis: torch.Tensor, active: torch.Tensor, s_hat: int,
     says, as the JAX package's XLA path sweeps it.  ``u_valid`` (the window
     of valid sample columns of a u-haloed block) is taken by the pixel and
     the tile kernel only: a caller that gives it passes per-pixel bounds
-    or takes the pixel kernel's route."""
+    or takes the pixel kernel's route.  While tracing, each route's call
+    is a span (``sweep.pixel``, ``sweep.rows``, ``sweep.tiles``; the tile
+    mode's grid bounds ``sweep.tile_bounds`` inside ``sweep.tiles``)."""
     V, S, U, C = epis.shape
     if C in (1, 3) and dim_d <= MAX_DIM_D:
-        return sweep_pile_pixel(epis, d_bounds[0], d_bounds[1], dim_d,
-                                s_hat, params, active, dmin_v_u, dmax_v_u,
-                                with_k_best, u_valid=u_valid)
+        with profiling.span("sweep.pixel"):
+            return sweep_pile_pixel(epis, d_bounds[0], d_bounds[1], dim_d,
+                                    s_hat, params, active, dmin_v_u,
+                                    dmax_v_u, with_k_best, u_valid=u_valid)
     if params.interpolation == "nearest":
         if dmin_v_u is None:
             dmin_v_u, dmax_v_u = (
@@ -151,18 +154,24 @@ def sweep_pass(epis: torch.Tensor, active: torch.Tensor, s_hat: int,
     elif dmin_v_u is None:
         if u_valid is not None:
             raise ValueError("the row sweep takes no u_valid window")
-        return sweep_pile_rows(epis, d_bounds[0], d_bounds[1], dim_d, s_hat,
-                               params, with_k_best, active_v_u=active)
+        with profiling.span("sweep.rows"):
+            return sweep_pile_rows(epis, d_bounds[0], d_bounds[1], dim_d,
+                                   s_hat, params, with_k_best,
+                                   active_v_u=active)
     if coarse_mode == "tile":
         if u_valid is not None:
             raise ValueError("the tile mode takes no u_valid window")
-        qmin, qmax = tile_quantized_bounds(active, dmin_v_u, dmax_v_u,
-                                           d_bounds)
-        return sweep_pile_tiles(epis, qmin, qmax, dim_d, s_hat, params,
-                                with_k_best, active_v_u=active,
-                                pdmin_v_u=dmin_v_u, pdmax_v_u=dmax_v_u)
-    return sweep_pile_tiles(epis, dmin_v_u, dmax_v_u, dim_d, s_hat, params,
-                            with_k_best, active_v_u=active, u_valid=u_valid)
+        with profiling.span("sweep.tiles"):
+            with profiling.span("sweep.tile_bounds"):
+                qmin, qmax = tile_quantized_bounds(active, dmin_v_u,
+                                                   dmax_v_u, d_bounds)
+            return sweep_pile_tiles(epis, qmin, qmax, dim_d, s_hat, params,
+                                    with_k_best, active_v_u=active,
+                                    pdmin_v_u=dmin_v_u, pdmax_v_u=dmax_v_u)
+    with profiling.span("sweep.tiles"):
+        return sweep_pile_tiles(epis, dmin_v_u, dmax_v_u, dim_d, s_hat,
+                                params, with_k_best, active_v_u=active,
+                                u_valid=u_valid)
 
 
 def _line_confidence(ce_s_v_u: torch.Tensor, depth_v_u: torch.Tensor,

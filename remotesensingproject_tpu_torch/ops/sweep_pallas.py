@@ -165,6 +165,16 @@ def sample_step_counter(work_count: Optional[torch.Tensor],
     return work_count
 
 
+def count_pixels(name: str, V: int, U: int, flags=None,
+                 active_v_u: Optional[torch.Tensor] = None) -> None:
+    """Add the pixels a plain version's caller asked for (the CPU route,
+    which sweeps densely) to the host counter ``name`` while tracing, as
+    the kernels' wrappers add the compaction's count."""
+    if profiling.enabled():
+        mask = activity_mask(V, U, flags, active_v_u)
+        profiling.count(name, int(mask.sum()))
+
+
 def compact(mask_v_u: torch.Tensor, S: int, C: int, with_k_best: bool
             ) -> Tuple[SweepResult, torch.Tensor, int]:
     """The zeroed outputs of a sweep over the pixels of ``mask_v_u``
@@ -219,6 +229,9 @@ def sweep_pile_rows(epis_v_s_u_c: torch.Tensor, dmin: float, dmax: float,
         adds the valid samples times mean-shift steps it ran.  None while
         tracing: the counter ``sweep.sample_steps`` (``utils.profiling``).
 
+    While tracing, the pixels swept are added to the host counter
+    ``sweep.rows.pixels``.
+
     Returns:
       SweepResult; on CUDA zeros at the pixels not swept.
     """
@@ -228,6 +241,7 @@ def sweep_pile_rows(epis_v_s_u_c: torch.Tensor, dmin: float, dmax: float,
     V, S, U, C = epis_v_s_u_c.shape
     dev = epis_v_s_u_c.device
     if dev.type != "cuda":
+        count_pixels("sweep.rows.pixels", V, U, row_active, active_v_u)
         return sweep_rows_plain(epis_v_s_u_c,
                                 candidate_grid(dmin, dmax, dim_d, dev),
                                 s_hat, params, with_k_best)
@@ -236,6 +250,7 @@ def sweep_pile_rows(epis_v_s_u_c: torch.Tensor, dmin: float, dmax: float,
     work_count = sample_step_counter(work_count, dev)
     out, act, n_act = compact(
         activity_mask(V, U, row_active, active_v_u, dev), S, C, with_k_best)
+    profiling.count("sweep.rows.pixels", n_act)
     if n_act == 0:
         return out
 

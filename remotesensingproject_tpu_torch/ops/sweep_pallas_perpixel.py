@@ -33,8 +33,8 @@ from ..types import DTYPE, f32
 from ..utils import profiling
 from . import cuda_build
 from .sweep import SweepResult, sweep_pile
-from .sweep_pallas import (CHUNK, activity_mask, compact, kernel_scalars,
-                           sample_step_counter)
+from .sweep_pallas import (CHUNK, activity_mask, compact, count_pixels,
+                           kernel_scalars, sample_step_counter)
 
 
 def tile_quantized_bounds(active_v_u: torch.Tensor, dmin_v_u: torch.Tensor,
@@ -105,6 +105,9 @@ def sweep_pile_tiles(epis_v_s_u_c: torch.Tensor, dmin_v_u: torch.Tensor,
       u_valid: optional (lo, hi) window of valid sample columns (default
         (0, U - 1)); the columns read stay clamped to the volume.
 
+    While tracing, the pixels swept are added to the host counter
+    ``sweep.tiles.pixels``.
+
     Returns:
       SweepResult; on CUDA zeros at the pixels not swept.
     """
@@ -112,6 +115,7 @@ def sweep_pile_tiles(epis_v_s_u_c: torch.Tensor, dmin_v_u: torch.Tensor,
     dev = epis_v_s_u_c.device
     masked = pdmin_v_u is not None
     if dev.type != "cuda":
+        count_pixels("sweep.tiles.pixels", V, U, tile_active, active_v_u)
         return sweep_pile(epis_v_s_u_c, dmin_v_u, dmax_v_u, dim_d, s_hat,
                           params, with_k_best, pdmin_v_u, pdmax_v_u, u_valid)
 
@@ -124,6 +128,7 @@ def sweep_pile_tiles(epis_v_s_u_c: torch.Tensor, dmin_v_u: torch.Tensor,
     work_count = sample_step_counter(work_count, dev)
     out, act, n_act = compact(
         activity_mask(V, U, tile_active, active_v_u, dev), S, C, with_k_best)
+    profiling.count("sweep.tiles.pixels", n_act)
     if n_act == 0:
         return out
 

@@ -19,6 +19,7 @@ is on:
 The counters (what each counts is said where it is counted):
 ``passes``, ``syncs.sweep_compact``, ``syncs.early_stop``,
 ``syncs.verbose``, ``sweep.sample_steps`` (device),
+``sweep.rows.pixels``, ``sweep.tiles.pixels``,
 ``line_conf.pixels`` (device), ``merge.launches``,
 ``alloc.device_calls``, ``ftc.levels``,
 ``ftc.level<p>.held_bytes`` and ``ftc.level<p>.peak_rise_bytes``.

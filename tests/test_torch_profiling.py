@@ -24,7 +24,7 @@ import torch
 import oracle
 from remotesensingproject_tpu_torch import (Depth2DComputer, DepthParams,
                                             FineToCoarse, PyramidParams)
-from remotesensingproject_tpu_torch.models import fine_to_coarse
+from remotesensingproject_tpu_torch.models import depth2d, fine_to_coarse
 from remotesensingproject_tpu_torch.ops.sweep_pallas import sweep_pile_rows
 from remotesensingproject_tpu_torch.ops.sweep_pallas_perpixel import (
     sweep_pile_tiles)
@@ -128,6 +128,64 @@ def test_pass_spans_nest_inside_the_passes(score):
         assert len(of(name)) == 1, name
     for a, b in of("depth2d.init"):
         assert sum(la <= a and b <= lb for la, lb in levels) == 1
+
+
+#: the spans of the pass sweep's routes (``depth2d.sweep_pass``)
+ROUTE_SPANS = {"sweep.pixel", "sweep.rows", "sweep.tiles",
+               "sweep.tile_bounds"}
+
+
+def _route_ftc(C, device="cpu"):
+    """Two levels (24 x 40, 12 x 20): at C=4 the row sweep at level 0 and
+    the tile sweep at level 1, at C=1 the pixel sweep at both."""
+    ftc = FineToCoarse(_vol(C=C), -1.0, 1.5, 9, device=device,
+                       pyramid=PYRAMID)
+    ftc.run()
+    return ftc, ftc.get_results()
+
+
+@pytest.mark.parametrize("C,opened", [
+    (4, {"sweep.rows", "sweep.tiles", "sweep.tile_bounds"}),
+    (1, {"sweep.pixel"})])
+def test_route_spans_name_the_route_of_every_pass(C, opened):
+    with profiling.tracing():
+        (ftc, _), spans = _profiled(lambda: _route_ftc(C))
+    assert len(ftc.computers) == 2
+    by_name = {}
+    for n, a, b in spans:
+        by_name.setdefault(n[len(profiling.PREFIX):], []).append((a, b))
+    assert set(by_name) & ROUTE_SPANS == opened
+    passes = sum(c.passes_run for c in ftc.computers)
+    routes = [ab for n in ("sweep.pixel", "sweep.rows", "sweep.tiles")
+              for ab in by_name.get(n, [])]
+    assert len(routes) == passes
+    tiles = by_name.get("sweep.tiles", [])
+    for a, b in by_name.get("sweep.tile_bounds", []):
+        assert sum(ta <= a and b <= tb for ta, tb in tiles) == 1
+    if C == 4:
+        assert len(by_name["sweep.rows"]) == ftc.computers[0].passes_run
+        assert len(tiles) == ftc.computers[1].passes_run
+
+
+def test_route_counters_count_the_pixels_each_route_swept(monkeypatch):
+    swept = {"rows": 0, "tiles": 0}
+    for route in swept:
+        def spy(*a, _orig=getattr(depth2d, f"sweep_pile_{route}"),
+                _route=route, **k):
+            swept[_route] += int(k["active_v_u"].sum())
+            return _orig(*a, **k)
+        monkeypatch.setattr(depth2d, f"sweep_pile_{route}", spy)
+    with profiling.tracing():
+        _route_ftc(4)
+    got = profiling.counters()
+    assert got["sweep.rows.pixels"] == swept["rows"] > 0
+    assert got["sweep.tiles.pixels"] == swept["tiles"] > 0
+    profiling.reset()
+    with profiling.tracing():
+        _route_ftc(1)
+    got = profiling.counters()
+    assert "sweep.rows.pixels" not in got
+    assert "sweep.tiles.pixels" not in got
 
 
 def test_switch_nests_and_counters_reset():
@@ -316,6 +374,24 @@ def test_pipeline_counters_on_the_card(score):
     assert got["alloc.device_calls"] >= 0
     names = {n for n, _, _ in spans}
     assert {"rslf/sweep.compact", "rslf/sweep.launch"} <= names
+
+
+@pytest.mark.cuda
+def test_route_counters_on_the_card():
+    dev = _dev()
+    _, (fused_off, valid_off) = _route_ftc(4, device=dev)
+    with profiling.tracing():
+        (_, (fused_on, valid_on)), spans = _profiled(
+            lambda: _route_ftc(4, device=dev))
+    assert torch.equal(fused_on, fused_off)
+    assert torch.equal(valid_on, valid_off)
+    got = profiling.counters()
+    assert got["sweep.rows.pixels"] > 0
+    assert got["sweep.tiles.pixels"] > 0
+    assert got["sweep.sample_steps"] > 0
+    names = {n[len(profiling.PREFIX):] for n, _, _ in spans}
+    assert names & ROUTE_SPANS == {"sweep.rows", "sweep.tiles",
+                                   "sweep.tile_bounds"}
 
 
 @pytest.mark.cuda
