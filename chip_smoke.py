@@ -118,15 +118,24 @@ Phases, one line each (details on further lines):
    ``fine-to-coarse`` through the CLI on the PNG folder, its fused map
    bitwise phase 15's RGB run (with the loader there: read without
    falling back to PIL);
-17. a ``{"kernels": [...]}`` JSON line (the new modes of a kernel under
+17. a pass that never waits on the card: the bench scene's pipeline with
+   every level's passes under ``torch.cuda.set_sync_debug_mode("error")``
+   and the program's counters on (``pass.syncs``, the early-stop reads
+   that blocked, ``depth2d.late_passes``), its maps and passes a level
+   those of a verbose run (which reads the early-stop flag after every
+   pass), its maps bitwise phase 3's; the
+   four-band pipeline likewise, bitwise phase 5's;
+18. a ``{"kernels": [...]}`` JSON line (the new modes of a kernel under
    ``modes``, depth1d's sweeps, the mesh's operands and phase 15's scenes
-   among them), the card line again, and last ``{"ok": true, "device":
+   among them; the sweeps launch once a pass, empty passes included, and
+   say so), the card line again, and last ``{"ok": true, "device":
    {...}}``.
 
 Launch counts are set to 0 just before each main path (phases 3, 4, 5,
-7-11, 13's runs in each rank, 14, 15's runs, 16's CLI run) and read just
-after; each path fails if one of its kernels never launched (phase 14 if
-any launched).  Exits
+7-11, 13's runs in each rank, 14, 15's runs, 16's CLI run, 17) and read
+just after; each path fails if one of its kernels never launched (phase 14
+if any launched); phases 3 and 5 fail unless the sweeps launched once a
+pass.  Exits
 non-zero, printing no result, without a CUDA device, without the package
 beside it, or when any phase (or any rank) fails.  Imports nothing of JAX.
 """
@@ -540,6 +549,7 @@ def main() -> int:
             load_level, save_level)
         from remotesensingproject_tpu_torch.utils.io import (
             build_epis_from_imgs, list_images, read_imgs_from_folder)
+        from remotesensingproject_tpu_torch.utils import profiling
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -1090,11 +1100,18 @@ def main() -> int:
         "phase 3", ("sweep_pixel", "median", "paint", "merge"),
         lambda: run_ftc(vol))
     wall3 = wall
-    passes3 = sum(c.passes_run for c in ftc.computers)
-    print(f"phase 3 merge: {launches['merge']} launches, {passes3} passes")
+    # the passes queued: each level's passes and its late pass, if any
+    passes3 = sum(c.passes_run + c.late_passes for c in ftc.computers)
+    print(f"phase 3 merge: {launches['merge']} launches, {passes3} passes "
+          f"queued")
     if launches["merge"] != passes3:
         failures.append(f"phase 3: {launches['merge']} merge launches for "
                         f"{passes3} passes")
+    # the host reads no compaction count: every pass launches its sweep,
+    # one with no active pixel too
+    if launches["sweep_pixel"] != passes3:
+        failures.append(f"phase 3: {launches['sweep_pixel']} pixel-sweep "
+                        f"launches for {passes3} passes")
     print(f"phase 3 pipeline: {wall:.2f}s wall, {len(ftc.computers)} levels "
           f"(V, S, U, passes, s) {level_line(ftc)}, launches {launches}, "
           f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1186,6 +1203,12 @@ def main() -> int:
         "phase 5", ("sweep_rows", "sweep_tiles", "median", "paint"),
         lambda: run_ftc(vol4))
     peak = torch.cuda.max_memory_allocated() / 2**30
+    passes5 = sum(c.passes_run + c.late_passes for c in ftc4.computers)
+    if launches["sweep_rows"] + launches["sweep_tiles"] != passes5:
+        failures.append(f"phase 5: {launches['sweep_rows']} row and "
+                        f"{launches['sweep_tiles']} tile sweep launches for "
+                        f"{passes5} passes")
+    ref5 = digest(fused4)
     rmse4, p90_4, edge4 = quality(fused4, edge_mask(vol4))
     rmse4_1, p90_4_1, _ = quality(fused4, mask1)
     finite4 = (tuple(fused4.shape) == (S, V, U)
@@ -1856,6 +1879,88 @@ def main() -> int:
         print("phase 16 FAILED: " + "; ".join(failures))
         return 1
 
+    # ---- phase 17: a pass that never waits on the card ----
+    def strict_run(orig):
+        """``Depth2DComputer.run`` under ``set_sync_debug_mode("error")``:
+        any wait for the card inside a level's passes raises."""
+        def run(self):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return orig(self)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return run
+
+    orig_run = Depth2DComputer.run
+    vol, _ = synthetic_sequence(torch, dev)
+    with contextlib.redirect_stdout(io.StringIO()):
+        # the early stop read after every pass: a verbose run reads it so
+        now = FineToCoarse(vol, DMIN, DMAX, D, params=params, device=dev,
+                           verbose=True)
+        now.run()
+    fused_now, valid_now = now.get_results()
+    passes_now = [c.passes_run for c in now.computers]
+    profiling.reset()
+    vol4 = None
+    Depth2DComputer.run = strict_run(orig_run)
+    try:
+        with profiling.tracing():
+            (ftc, fused17, valid17), wall, launches = run_path(
+                "phase 17 LR", ("sweep_pixel", "median", "paint", "merge"),
+                lambda: run_ftc(vol))
+        got = profiling.counters()
+        vol4, _ = synthetic_sequence(torch, dev, gains=BAND_GAINS)
+        (ftc4, fused4, _), wall4, launches4 = run_path(
+            "phase 17 four-band", ("sweep_rows", "sweep_tiles"),
+            lambda: run_ftc(vol4))
+    except RuntimeError as e:
+        failures.append(f"phase 17: a level's passes waited for the card: "
+                        f"{e}")
+        got = None
+    finally:
+        Depth2DComputer.run = orig_run
+    if got is not None:
+        passes = [c.passes_run for c in ftc.computers]
+        late = sum(c.late_passes for c in ftc.computers)
+        n_pass = got.get("passes", 0)           # queued, the late ones too
+        syncs = sum(got.get(k, 0) for k in ("syncs.early_stop",
+                                            "syncs.verbose",
+                                            "syncs.sweep_compact"))
+        late_n = got.get("depth2d.late_passes", 0)
+        same = (torch.equal(fused17, fused_now)
+                and torch.equal(valid17, valid_now)
+                and digest(fused17) == ref3["fused"])
+        print(f"phase 17 LR, traced, every level's passes under "
+              f"set_sync_debug_mode('error'): {wall:.2f}s wall, passes "
+              f"{passes} (read after every pass: {passes_now}), pass.syncs "
+              f"{syncs / max(n_pass, 1):.4f} (blocked late reads "
+              f"{got.get('syncs.early_stop', 0)} of {n_pass} passes "
+              f"queued), "
+              f"depth2d.late_passes {late_n}, syncs.sweep_compact "
+              f"{got.get('syncs.sweep_compact', 0)}; fused and validity "
+              f"bitwise the immediate stop's and phase 3's: {same}")
+        same4 = digest(fused4) == ref5
+        print(f"phase 17 four-band, every level's passes under "
+              f"set_sync_debug_mode('error'): {wall4:.2f}s wall, passes "
+              f"{[c.passes_run for c in ftc4.computers]}, launches "
+              f"{launches4}; fused bitwise phase 5's: {same4}")
+        if not (same and same4):
+            failures.append("phase 17: maps differ from the early stop read "
+                            "after every pass")
+        if passes != passes_now:
+            failures.append(f"phase 17: passes {passes} against "
+                            f"{passes_now}")
+        if (late_n != late or late > len(passes)
+                or n_pass != sum(passes) + late
+                or got.get("syncs.sweep_compact", 0)):
+            failures.append(f"phase 17: counters {got}")
+        del ftc, ftc4, fused17, valid17, fused4
+    del now, fused_now, valid_now, vol, vol4
+    torch.cuda.empty_cache()
+    if failures:
+        print("phase 17 FAILED: " + "; ".join(failures))
+        return 1
+
     meta = {
         "sweep_pixel": ("remotesensingproject_tpu_torch/csrc/sweep_pixel.cu",
                         "remotesensingproject_tpu/ops/sweep_pallas_pixel.py:61"),
@@ -1875,8 +1980,13 @@ def main() -> int:
                   "no TPU kernel: the JAX package's XLA, "
                   "remotesensingproject_tpu/models/depth2d.py:433"),
     }
+    # the sweeps launch once a pass, a pass with no active pixel too: the
+    # host never reads the compaction's count
+    sweeps = ("sweep_pixel", "sweep_rows", "sweep_tiles")
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=total[k], library_ms=None, **records[k],
+                    **({"launches_per": "one a pass, empty passes included"}
+                       if k in sweeps else {}),
                     **({"modes": modes[k]} if k in modes else {}))
                for k, (src, rep) in meta.items()]
     print(json.dumps({"kernels": kernels}))

@@ -97,7 +97,14 @@
 //
 // The launcher chooses the block size from the occupancy the runtime
 // reports for this build (the most resident threads an SM holds), once per
-// kernel and size, and G from the number of pixels and resident blocks.
+// kernel and size.  The number of listed pixels lies in device memory,
+// where the compaction wrote it, and the host never reads it: the launcher
+// queues a one-thread kernel (sweep_plan_kernel) that works out the group
+// size G from it and the resident blocks, copies that plan into constant
+// memory, where the sweep reads it as it reads its parameters, and starts
+// as many blocks as the most groups the list's capacity can make, with
+// shared memory for the largest group.  Blocks past the groups return at
+// once, so an empty pass launches too and costs its block starts.
 // The per-instantiation choices below (rslf_pc_regs, rslf_pc_um,
 // rslf_pc_us) are the ones measured fastest on an H100;
 // scripts/torch_pc_designs.py builds and times others.
@@ -137,8 +144,9 @@ struct ChanCol {
 struct PcArgs {
   const float* epis;  // [V, S, U, C]
   int S, U, C;
-  const int* act;     // [n_act] flat pixel indices v * U + u
-  int n_act;
+  const int* act;     // [cap] flat pixel indices v * U + u, *count listed
+  const int* count;   // device memory: the pixels listed in act
+  int cap;            // entries act holds (the launch's most pixels)
   const float* bmin;  // [V, U] grid bounds, or null for the uniform ones
   const float* bmax;
   float dmin, dmax;   // the uniform grid bounds
@@ -147,7 +155,6 @@ struct PcArgs {
   int D, s_hat;
   float slope, a_coef;
   int iters;
-  int G;              // pixels of a group
   int ncap;           // items of a window's list
   int by_pixel;       // slots laid d * G + p (unmasked mode only)
   int u_lo, u_hi;     // the window of valid sample columns (not PcRuleRow)
@@ -160,6 +167,33 @@ struct PcArgs {
 // on an H100: 32 beats both 16 and 64 there).
 __host__ __device__ inline int rslf_pc_gmax(bool masked, bool by_pixel) {
   return masked ? 64 : (by_pixel ? 32 : 16);
+}
+
+// The fewest pixels a group holds: in the masked mode a pixel has few
+// items, so at least 8.
+__host__ __device__ inline int rslf_pc_gmin(bool masked) {
+  return masked ? 8 : 1;
+}
+
+// The running launch's listed pixels and pixels of a group.  The sweep
+// reads them from constant memory, as it reads its parameters (they stay
+// out of its registers); sweep_plan_kernel writes them to `rslf_pc_plan`
+// in device memory and the launcher copies them here, both queued on the
+// launch's stream (so one launch of a library runs at a time on a card).
+struct PcLive {
+  int n, G;
+};
+__constant__ PcLive rslf_pc_live;
+__device__ PcLive rslf_pc_plan;
+
+// G for the `*count` listed pixels: the list spread over the card's
+// `resident` blocks, within [g_min, g_max].
+__global__ void sweep_plan_kernel(const int* count, int cap, int resident,
+                                  int g_min, int g_max) {
+  const int n = min(*count, cap);
+  const int g_even = (n + resident - 1) / resident;
+  rslf_pc_plan =
+      PcLive{n, g_even < g_min ? g_min : (g_even > g_max ? g_max : g_even)};
 }
 
 // Items of a window's list for each thread of the block.
@@ -753,8 +787,8 @@ __global__ void sweep_pc_kernel(const PcArgs a) {
   const int S = a.S, U = a.U, D = a.D;
   const bool masked = a.pmin != nullptr;
   const bool with_k = a.out.k_best != nullptr;
-  const PcLayout L =
-      rslf_pc_layout(S, C, T, MAXC, a.ncap, a.G, with_k);
+  const int G = rslf_pc_live.G;
+  const PcLayout L = rslf_pc_layout(S, C, T, MAXC, a.ncap, G, with_k);
   // the block's samples come first: [S][C][T], a column a thread; then, for
   // MAXC == 0, the threads' channel vectors
   const bool vec = (reinterpret_cast<size_t>(a.epis) & 15) == 0;
@@ -766,14 +800,14 @@ __global__ void sweep_pc_kernel(const PcArgs a) {
   float* it_rb = smem + L.irb;
   float* it_rbp = smem + L.irbp;
   int* px_pix = reinterpret_cast<int*>(smem + L.px);
-  float* px_lo = smem + L.px + a.G;
-  float* px_rng = smem + L.px + 2 * a.G;
-  float* px_plo = smem + L.px + 3 * a.G;
-  float* px_phi = smem + L.px + 4 * a.G;
-  float* px_best = smem + L.px + 5 * a.G;
-  float* px_sum = smem + L.px + 6 * a.G;
-  int* px_bd = reinterpret_cast<int*>(smem + L.px + 7 * a.G);
-  int* px_nal = reinterpret_cast<int*>(smem + L.px + 8 * a.G);
+  float* px_lo = smem + L.px + G;
+  float* px_rng = smem + L.px + 2 * G;
+  float* px_plo = smem + L.px + 3 * G;
+  float* px_phi = smem + L.px + 4 * G;
+  float* px_best = smem + L.px + 5 * G;
+  float* px_sum = smem + L.px + 6 * G;
+  int* px_bd = reinterpret_cast<int*>(smem + L.px + 7 * G);
+  int* px_nal = reinterpret_cast<int*>(smem + L.px + 8 * G);
   float* px_rb = smem + L.prb;
   float* px_rbp = smem + L.prbp;
   int* wcnt = reinterpret_cast<int*>(smem + L.misc);
@@ -782,9 +816,9 @@ __global__ void sweep_pc_kernel(const PcArgs a) {
   // valid samples x mean-shift steps this thread ran (the work count)
   unsigned long long work = 0ULL;
 
-  for (int g = blockIdx.x; g * a.G < a.n_act; g += gridDim.x) {
-    const int p0 = g * a.G;
-    const int gp = min(a.G, a.n_act - p0);
+  for (int g = blockIdx.x; g * G < rslf_pc_live.n; g += gridDim.x) {
+    const int p0 = g * G;
+    const int gp = min(G, rslf_pc_live.n - p0);
     for (int p = tid; p < gp; p += T) {
       const int pix = a.act[p0 + p];
       float lo = a.dmin, hi = a.dmax;
@@ -1057,7 +1091,7 @@ cudaError_t plan(int S, int C, bool with_k, int g_max, PcPlan* out) {
 
 template <int MAXC, typename Rule>
 cudaError_t launch(PcArgs a, cudaStream_t stream) {
-  if (a.n_act <= 0) return cudaSuccess;
+  if (a.cap <= 0) return cudaSuccess;
   // (float)d is exact up to 2^24, as the float32 arange of the plain
   // versions' grids is, and a group's G * D slots (G <= 64) stay in an int
   if (a.D < 1 || a.D > (1 << 24)) return cudaErrorInvalidValue;
@@ -1069,18 +1103,26 @@ cudaError_t launch(PcArgs a, cudaStream_t stream) {
   PcPlan p;
   const cudaError_t err = plan<MAXC, Rule>(a.S, a.C, with_k, g_max, &p);
   if (err != cudaSuccess) return err;
-  // pixels of a group: spread the list over the resident blocks of the
-  // card; in the masked mode a pixel has few items, so keep at least 8
+  // pixels of a group: the list spread over the resident blocks of the
+  // card (sweep_plan_kernel, from the count in device memory), so that
+  // groups number at most the resident blocks or cap / g_max, and a block
+  // takes one group, as the hardware hands out blocks
   const int resident = p.blocks_per_sm * p.sms;
-  const int g_min = masked ? 8 : 1;
-  const int g_even = (a.n_act + resident - 1) / resident;
-  a.G = g_even < g_min ? g_min : (g_even > g_max ? g_max : g_even);
+  sweep_plan_kernel<<<1, 1, 0, stream>>>(a.count, a.cap, resident,
+                                         rslf_pc_gmin(masked), g_max);
+  cudaError_t e = cudaGetLastError();
+  void* plan_src = nullptr;
+  if (e == cudaSuccess) e = cudaGetSymbolAddress(&plan_src, rslf_pc_plan);
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbolAsync(rslf_pc_live, plan_src, sizeof(PcLive), 0,
+                                cudaMemcpyDeviceToDevice, stream);
+  if (e != cudaSuccess) return e;
   a.ncap = p.ncap;
-  const int blocks = (a.n_act + a.G - 1) / a.G;
-  const size_t bytes =
-      4 * (size_t)rslf_pc_layout(a.S, a.C, p.threads, MAXC, p.ncap, a.G, with_k)
-              .total;
-  sweep_pc_kernel<MAXC, Rule><<<blocks, p.threads, bytes, stream>>>(a);
+  const int most = (a.cap + g_max - 1) / g_max;
+  const int blocks = most > resident ? most : resident;
+  // shared memory for the largest group, as the plan budgeted it
+  sweep_pc_kernel<MAXC, Rule>
+      <<<blocks, p.threads, (size_t)p.smem_bytes, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -45,8 +45,8 @@
 // s) a thread recomputes the winner's sample and its K (consecutive threads
 // take consecutive s of one pixel, so their stores lie U floats apart).
 // The TPU's 128-lane groups, 8-pixel batches and scalar-core compaction are
-// not carried over: the wrapper compacts the active pixels with
-// torch.nonzero.
+// not carried over: the wrapper compacts the active pixels with a prefix sum
+// and a binary search, and the count stays in device memory.
 
 #include "sweep_pc.cuh"
 
@@ -64,19 +64,21 @@ RSLF_EXPORT int rslf_sweep_pixel_plan(int S, int C, int with_k, int nearest,
              : rslf_pc::plan_for_c<PcRulePixel>(S, C, with_k, 0, 0, out);
 }
 
-// Launch on `stream`; returns the CUDA error code of the launch.  `bmin` /
-// `bmax` (per-pixel bounds), `k_best` and `work_count` may be null;
-// `nearest` != 0 takes the nearest rule; [u_lo, u_hi] is the window of valid
-// sample columns ([0, U - 1] for whole rows).
+// Launch on `stream`; returns the CUDA error code of the launch.  `act`
+// holds `cap` entries, of which the first `*count` (device memory, never
+// read by the host) list the pixels to sweep.  `bmin` / `bmax` (per-pixel
+// bounds), `k_best` and `work_count` may be null; `nearest` != 0 takes the
+// nearest rule; [u_lo, u_hi] is the window of valid sample columns
+// ([0, U - 1] for whole rows).
 RSLF_EXPORT int rslf_sweep_pixel(
-    const float* epis, int S, int U, int C, const int* act, int n_act,
-    const float* bmin, const float* bmax, float dmin, float dmax, int D,
-    int s_hat, float slope, float a_coef, int iters, int nearest, int u_lo,
-    int u_hi, float* best_score, float* score_mean, float* best_depth,
+    const float* epis, int S, int U, int C, const int* act, const int* count,
+    int cap, const float* bmin, const float* bmax, float dmin, float dmax,
+    int D, int s_hat, float slope, float a_coef, int iters, int nearest,
+    int u_lo, int u_hi, float* best_score, float* score_mean, float* best_depth,
     float* rbar, float* k_best, unsigned long long* work_count,
     void* stream) {
-  const PcArgs a{epis, S, U, C, act, n_act, bmin, bmax, dmin, dmax,
-                 nullptr, nullptr, D, s_hat, slope, a_coef, iters, 0, 0, 0,
+  const PcArgs a{epis, S, U, C, act, count, cap, bmin, bmax, dmin, dmax,
+                 nullptr, nullptr, D, s_hat, slope, a_coef, iters, 0, 0,
                  u_lo, u_hi, SweepOut{best_score, score_mean, best_depth, rbar, k_best,
                           work_count}};
   const cudaStream_t st = (cudaStream_t)stream;

@@ -50,17 +50,19 @@ RSLF_EXPORT int rslf_sweep_rows_plan(int S, int C, int with_k, int* out) {
   return rslf_pc::plan_for_c<PcRuleRow>(S, C, with_k, 0, 1, out);
 }
 
-// Launch on `stream`; returns the CUDA error code of the launch.  `k_best`
-// and `work_count` may be null.
+// Launch on `stream`; returns the CUDA error code of the launch.  `act`
+// holds `cap` entries, of which the first `*count` (device memory, never
+// read by the host) list the pixels to sweep.  `k_best` and `work_count`
+// may be null.
 RSLF_EXPORT int rslf_sweep_rows(const float* epis, int S, int U, int C,
-                                const int* act, int n_act, float dmin,
-                                float dmax, int D, int s_hat, float slope,
-                                float a_coef, int iters,
+                                const int* act, const int* count, int cap,
+                                float dmin, float dmax, int D, int s_hat,
+                                float slope, float a_coef, int iters,
                                 float* best_score, float* score_mean,
                                 float* best_depth, float* rbar, float* k_best,
                                 unsigned long long* work_count, void* stream) {
-  const PcArgs a{epis, S, U, C, act, n_act, nullptr, nullptr, dmin, dmax,
-                 nullptr, nullptr, D, s_hat, slope, a_coef, iters, 0, 0,
+  const PcArgs a{epis, S, U, C, act, count, cap, nullptr, nullptr, dmin, dmax,
+                 nullptr, nullptr, D, s_hat, slope, a_coef, iters, 0,
                  /*by_pixel=*/1, /*u_lo, u_hi (not read)=*/0, U - 1,
                  SweepOut{best_score, score_mean, best_depth, rbar, k_best,
                           work_count}};

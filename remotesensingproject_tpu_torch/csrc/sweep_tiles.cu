@@ -62,14 +62,16 @@ RSLF_EXPORT int rslf_sweep_tiles_plan(int S, int C, int with_k, int masked,
                                                     out);
 }
 
-// Launch on `stream`; returns the CUDA error code of the launch.  `pmin` /
-// `pmax` (the masked mode), `k_best` and `work_count` may be null;
-// `nearest` != 0 takes the nearest rule; [u_lo, u_hi] is the window of valid
-// sample columns ([0, U - 1] for whole rows).
+// Launch on `stream`; returns the CUDA error code of the launch.  `act`
+// holds `cap` entries, of which the first `*count` (device memory, never
+// read by the host) list the pixels to sweep.  `pmin` / `pmax` (the masked
+// mode), `k_best` and `work_count` may be null; `nearest` != 0 takes the
+// nearest rule; [u_lo, u_hi] is the window of valid sample columns
+// ([0, U - 1] for whole rows).
 RSLF_EXPORT int rslf_sweep_tiles(const float* epis, int S, int U, int C,
-                                 const int* act, int n_act, const float* bmin,
-                                 const float* bmax, const float* pmin,
-                                 const float* pmax, int D, int s_hat,
+                                 const int* act, const int* count, int cap,
+                                 const float* bmin, const float* bmax,
+                                 const float* pmin, const float* pmax, int D, int s_hat,
                                  float slope, float a_coef, int iters,
                                  int nearest, int u_lo, int u_hi,
                                  float* best_score,
@@ -77,8 +79,8 @@ RSLF_EXPORT int rslf_sweep_tiles(const float* epis, int S, int U, int C,
                                  float* rbar, float* k_best,
                                  unsigned long long* work_count,
                                  void* stream) {
-  const PcArgs a{epis, S, U, C, act, n_act, bmin, bmax, 0.f, 0.f,
-                 pmin, pmax, D, s_hat, slope, a_coef, iters, 0, 0, 0,
+  const PcArgs a{epis, S, U, C, act, count, cap, bmin, bmax, 0.f, 0.f,
+                 pmin, pmax, D, s_hat, slope, a_coef, iters, 0, 0,
                  u_lo, u_hi, SweepOut{best_score, score_mean, best_depth, rbar, k_best,
                           work_count}};
   const cudaStream_t st = (cudaStream_t)stream;

@@ -35,8 +35,12 @@ Reference quirks kept on purpose:
 The state lives on one device and each pass updates it in place.  The
 JAX package's TPU workarounds (v-slabs, static pass chunks, host-paced
 dispatch) have no counterpart: a Python loop over the schedule has the
-same semantics.  A pass's sweep, median and paint are stage hooks of
-:func:`_pass_fn`, as in the JAX package: the mesh-parallel drivers
+same semantics.  On a card no pass reads a device value on the host: the
+sweeps' compaction keeps its count in device memory, and the early-stop
+flag of pass N is read once pass N + 1 is queued (:class:`LateFlag`), so
+the host runs up to one pass ahead of the card.  A pass's sweep, median
+and paint are stage hooks of :func:`_pass_fn`, as in the JAX package:
+the mesh-parallel drivers
 (``parallel/``) pass halo-exchanging ones, and ``use_pallas=False`` passes
 the plain versions (:func:`plain_stages`), the JAX package's XLA path.
 """
@@ -220,10 +224,19 @@ def _pass_fn(epis: torch.Tensor, frames: torch.Tensor, state: Depth2DState,
              dmin_s_v_u: Optional[torch.Tensor] = None,
              dmax_s_v_u: Optional[torch.Tensor] = None,
              coarse_mode: str = "tile", sweep_fn=None, median_fn=None,
-             prop_fn=None) -> Depth2DState:
+             prop_fn=None, live: Optional[torch.Tensor] = None
+             ) -> Depth2DState:
     """One center-outward pass (sweep + merge + median + propagation),
     updating ``state`` in place.  Per-pixel bounds are given at the
     bounds-edited levels and None at uniform ones.
+
+    ``live`` (a 0-d bool tensor on the state's device, or None) is whether
+    any confident pixel was left unclaimed before this pass.  Where it is
+    False the pass paints nothing: on such a state the sweep has no pixel
+    and the merge changes nothing, and with no source the pass is an exact
+    no-op.  (Without the gate, sources never swept, whose r_bar is still
+    0, could paint a dark target that a failed sweep left unclaimed.)  The
+    pass loop gives it when it reads the early-stop flag a pass late.
 
     The stage hooks, as in the JAX package's ``_pass_fn``, replace one stage
     each (None: the kernels): ``sweep_fn(active, dmin_v_u, dmax_v_u, s_hat)
@@ -235,6 +248,7 @@ def _pass_fn(epis: torch.Tensor, frames: torch.Tensor, state: Depth2DState,
     kernel on the card, the plain version elsewhere), so there is one pass
     implementation."""
     with profiling.span("depth2d.pass"):
+        # every pass queued, a late one on a converged state too
         profiling.count("passes")
         line = params.score_version == "line"
         if sweep_fn is None:
@@ -290,9 +304,56 @@ def _pass_fn(epis: torch.Tensor, frames: torch.Tensor, state: Depth2DState,
             source_mask = conf_new > params.disp_score_threshold
         else:
             source_mask = mask_new
+        if live is not None:
+            source_mask = source_mask & live
         prop_fn(state.claim, frames, filtered, rbar_new, source_mask, s_hat,
                 payloads)
         return state
+
+
+def _unclaimed(state: Depth2DState) -> torch.Tensor:
+    """Whether any confident pixel is left unclaimed: a 0-d bool tensor on
+    the state's device (the early-stop flag)."""
+    return torch.any(state.ce_mask & state.claim)
+
+
+class LateFlag:
+    """The early-stop flag of each pass, read a pass late, on a card.
+
+    :meth:`post` queues the flag of the pass just queued: the card works it
+    out, copies the byte without blocking into pinned host memory and
+    records an event.  :meth:`read`, called once the host has queued the
+    next pass, returns that flag: it waits on the event only if the card
+    has not reached it, and counts that wait as ``syncs.early_stop``, so
+    that counter over ``passes`` is the share of passes at which the card
+    set the pace.  The host reads the slot before it posts the next flag
+    into it, and the card is still running the pass just queued, so one
+    slot loses no overlap.  The cost is one pass a level queued on a
+    converged state, which the pass loop gates to an exact no-op
+    (``_pass_fn``'s ``live``), keeps out of ``passes_run`` and counts as
+    ``Depth2DComputer.late_passes`` and ``depth2d.late_passes``.
+    """
+
+    def __init__(self, device: torch.device):
+        self.host = torch.zeros(1, dtype=torch.bool, pin_memory=True)
+        self.event = torch.cuda.Event()
+        # the stream the passes and the copy are queued on
+        self.stream = torch.cuda.current_stream(device)
+        self.posted = False
+
+    def post(self, flag: torch.Tensor) -> None:
+        self.host.copy_(flag, non_blocking=True)
+        self.event.record(self.stream)
+        self.posted = True
+
+    def read(self) -> Optional[bool]:
+        """The flag posted last (None before the first post)."""
+        if not self.posted:
+            return None
+        if not self.event.query():
+            profiling.count("syncs.early_stop")
+            self.event.synchronize()
+        return bool(self.host[0])
 
 
 def _as_tensor(x, device: torch.device) -> torch.Tensor:
@@ -313,7 +374,15 @@ class Depth2DComputer:
     package does after each chunk of passes (one more host sync each).
     ``use_pallas=False`` runs the plain versions of the sweep, median and
     paint on the computer's device (:func:`plain_stages`, the JAX package's
-    XLA path); the default (None) and True run the kernels."""
+    XLA path); the default (None) and True run the kernels.
+
+    The early stop reads its flag after each pass on CPU tensors and with
+    ``verbose``; on a card it reads it a pass late (:class:`LateFlag`), so
+    the card may run one pass more a level, on a converged state, gated to
+    an exact no-op: the maps stay the same.  ``passes_run`` counts the
+    level's passes on an unconverged state, as the immediate read (and the
+    JAX package) counts them; ``late_passes`` (0 or 1) the pass queued
+    after them, which the trace counts as ``depth2d.late_passes``."""
 
     def __init__(self, epis_v_s_u_c, dmin: float, dmax: float, dim_d: int,
                  epi_scale_factor: float = -1.0,
@@ -343,6 +412,7 @@ class Depth2DComputer:
         self._bounds_edited = False
         self.state: Optional[Depth2DState] = None
         self.passes_run = 0
+        self.late_passes = 0
 
     def _full_bounds(self, value: float) -> torch.Tensor:
         V, S, U, _ = self.epis.shape
@@ -418,18 +488,38 @@ class Depth2DComputer:
                                  (self.dmin, self.dmax))
         schedule = center_outward_schedule(S)
         self.passes_run = 0
+        self.late_passes = 0
         t_chunk = time.perf_counter()
+        late = (self.early_stop and not self.verbose
+                and self.device.type == "cuda")
+        flag = LateFlag(self.device) if late else None
+        live = None
         for s_hat in schedule:
             _pass_fn(self.epis, frames, state, s_hat, dim_d=self.dim_d,
                      params=self.params, d_bounds=(self.dmin, self.dmax),
-                     coarse_mode=self.coarse_mode, **bounds, **hooks)
+                     coarse_mode=self.coarse_mode, live=live, **bounds,
+                     **hooks)
+            if late:
+                # the previous pass's flag is read now that this pass is
+                # queued behind it; then this pass's flag is queued
+                with profiling.span("depth2d.early_stop"):
+                    if flag.read() is False:
+                        # this pass ran on a converged state, gated to a
+                        # no-op: not one of the level's passes
+                        self.late_passes = 1
+                        profiling.count("depth2d.late_passes")
+                        break
+                    live = _unclaimed(state)
+                    flag.post(live)
+                self.passes_run += 1
+                continue
             self.passes_run += 1
             # a pass on a state with nothing left to claim is a no-op
             done = False
             if self.early_stop:
                 with profiling.span("depth2d.early_stop"):
                     profiling.count("syncs.early_stop")
-                    done = not bool(torch.any(state.ce_mask & state.claim))
+                    done = not bool(_unclaimed(state))
             if self.verbose and (done or self.passes_run % PASS_CHUNK == 0
                                  or self.passes_run == len(schedule)):
                 now = time.perf_counter()

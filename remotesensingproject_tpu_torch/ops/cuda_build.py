@@ -163,6 +163,17 @@ def check(err: int, name: str, what: str, no_fit: Optional[str] = None):
                            f"{fn(err).decode()}")
 
 
+def _stream_handle(device: Optional[torch.device]) -> int:
+    """The current stream of ``device`` (None: the current device) as the
+    raw ``cudaStream_t`` a launch takes, without building a
+    ``torch.cuda.Stream`` a call (a pass makes four launches)."""
+    if device is None or device.index is None:
+        index = torch.cuda.current_device()
+    else:
+        index = device.index
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 class Entry:
     """One C function of kernel library ``lib``, returning a CUDA error
     code.  ``signature`` spells its arguments, spaces aside: ``p`` a
@@ -195,7 +206,7 @@ class Entry:
         vals = [a.data_ptr() if isinstance(a, torch.Tensor) else a
                 for a in args]
         if self.launch:
-            vals.append(torch.cuda.current_stream(device).cuda_stream)
+            vals.append(_stream_handle(device))
         err = fn(*vals)
         if err:
             check(err, self.lib, self.symbol, no_fit)

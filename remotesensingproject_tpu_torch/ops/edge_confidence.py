@@ -20,9 +20,17 @@ from ..config import DepthParams
 from ..types import channel_sumsq, norm
 
 
-def _reflect101_index(n: int, w: int) -> np.ndarray:
-    """Source index of each column of a reflect-101 padded axis."""
-    return np.pad(np.arange(n), (w, w), mode="reflect")
+def _reflect101_index(n: int, w: int, device=None) -> torch.Tensor:
+    """Source index of each column of a reflect-101 padded axis (``np.pad(
+    np.arange(n), (w, w), mode="reflect")``, which repeats the reflection
+    where ``w`` >= ``n``), made on ``device``: no copy from the host, so a
+    level's start does not wait for the card."""
+    i = torch.arange(-w, n + w, device=device)
+    if n == 1:
+        return torch.zeros_like(i)
+    period = 2 * (n - 1)
+    j = torch.remainder(i, period)
+    return torch.where(j < n, j, period - j)
 
 
 def edge_confidence_volume(epis_v_s_u_c: torch.Tensor, params: DepthParams):
@@ -37,7 +45,7 @@ def edge_confidence_volume(epis_v_s_u_c: torch.Tensor, params: DepthParams):
     e = epis_v_s_u_c
     w = (params.edge_confidence_filter_size - 1) // 2
     U = e.shape[2]
-    idx = torch.as_tensor(_reflect101_index(U, w), device=e.device)
+    idx = _reflect101_index(U, w, e.device)
     ep = torch.index_select(e, 2, idx)
 
     ce = torch.zeros(e.shape[:3], dtype=e.dtype, device=e.device)

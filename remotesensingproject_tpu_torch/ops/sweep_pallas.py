@@ -146,12 +146,14 @@ def activity_mask(V: int, U: int, row_active=None, active_v_u=None,
 
 def sweep_outputs(V: int, S: int, U: int, C: int, with_k_best: bool,
                   device) -> SweepResult:
-    """Zeroed kernel outputs (inactive pixels keep the zeros)."""
-    def z(*shape):
-        return torch.zeros(shape, dtype=DTYPE, device=device)
-
-    return SweepResult(z(V, U), z(V, U), z(V, U), z(V, U, C),
-                       z(V, S, U) if with_k_best else None)
+    """Zeroed kernel outputs (inactive pixels keep the zeros): views of one
+    buffer, so one allocation and one fill a sweep."""
+    n = V * U
+    sizes = [n, n, n, n * C] + ([V * S * U] if with_k_best else [])
+    parts = torch.zeros(sum(sizes), dtype=DTYPE, device=device).split(sizes)
+    return SweepResult(parts[0].view(V, U), parts[1].view(V, U),
+                       parts[2].view(V, U), parts[3].view(V, U, C),
+                       parts[4].view(V, S, U) if with_k_best else None)
 
 
 def sample_step_counter(work_count: Optional[torch.Tensor],
@@ -175,17 +177,44 @@ def count_pixels(name: str, V: int, U: int, flags=None,
         profiling.count(name, int(mask.sum()))
 
 
+def compact_pixels(mask_v_u: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The flat indices of the pixels of ``mask_v_u`` ``[V, U]``, in
+    ascending order, and their number, with no read to the host: (``act``,
+    int32 ``[V * U]``, whose first ``count`` entries are
+    ``torch.nonzero``'s list and the rest ``V * U``; ``count``, int32
+    ``[1]`` on the mask's device).  An inclusive prefix sum of the mask
+    counts the listed pixels up to each index, so the k-th listed pixel is
+    the first index where it reaches k + 1 (a binary search), and the
+    count is its last entry.  Three operations, all in int32."""
+    flat = mask_v_u.reshape(-1)
+    n = flat.numel()
+    place = torch.cumsum(flat, 0, dtype=torch.int32)
+    act = torch.searchsorted(
+        place, torch.arange(1, n + 1, dtype=torch.int32, device=flat.device),
+        out_int32=True)
+    return act, place[n - 1:]
+
+
 def compact(mask_v_u: torch.Tensor, S: int, C: int, with_k_best: bool
-            ) -> Tuple[SweepResult, torch.Tensor, int]:
+            ) -> Tuple[SweepResult, torch.Tensor, torch.Tensor]:
     """The zeroed outputs of a sweep over the pixels of ``mask_v_u``
-    ``[V, U]``, those pixels' flat indices (int32) and their number, which
-    the host reads: one sync, counted as ``syncs.sweep_compact``."""
+    ``[V, U]`` and those pixels' list (:func:`compact_pixels`: the flat
+    indices and their count, both in device memory).  No sync: the kernels
+    read the count on the device."""
     V, U = mask_v_u.shape
     with profiling.span("sweep.compact"):
         out = sweep_outputs(V, S, U, C, with_k_best, mask_v_u.device)
-        act = torch.nonzero(mask_v_u.reshape(-1)).reshape(-1).to(torch.int32)
-        profiling.count("syncs.sweep_compact")
-    return out, act, act.numel()
+        act, count = compact_pixels(mask_v_u)
+    return out, act, count
+
+
+def count_listed(name: str, count: torch.Tensor) -> None:
+    """Add the compaction's ``count`` to the host counter ``name`` while
+    tracing: a read of a device value, so a sync, but only while tracing
+    (``sweep.rows.pixels``, ``sweep.tiles.pixels``)."""
+    if profiling.enabled():
+        profiling.count(name, int(count.item()))
 
 
 def kernel_scalars(U: int, C: int, params: DepthParams,
@@ -199,7 +228,7 @@ def kernel_scalars(U: int, C: int, params: DepthParams,
 
 
 _SWEEP = cuda_build.Entry("sweep_rows", "rslf_sweep_rows",
-                          "p iii p i ff ii ff i pppppp s")
+                          "p iii pp i ff ii ff i pppppp s")
 _PLAN = cuda_build.Entry("sweep_rows", "rslf_sweep_rows_plan", "iii p")
 
 
@@ -230,7 +259,12 @@ def sweep_pile_rows(epis_v_s_u_c: torch.Tensor, dmin: float, dmax: float,
         tracing: the counter ``sweep.sample_steps`` (``utils.profiling``).
 
     While tracing, the pixels swept are added to the host counter
-    ``sweep.rows.pixels``.
+    ``sweep.rows.pixels``; on CUDA that reads the compaction's count, a
+    sync that only tracing makes.  Untraced, the wrapper reads nothing of
+    the device: a call with no active pixel launches too, and its blocks
+    return at once.  Launches of one kernel library must all go to one
+    stream (the current stream, as every caller here queues them): each
+    hands its plan to its sweep through the library's constant memory.
 
     Returns:
       SweepResult; on CUDA zeros at the pixels not swept.
@@ -248,17 +282,15 @@ def sweep_pile_rows(epis_v_s_u_c: torch.Tensor, dmin: float, dmax: float,
 
     cuda_build.require("epis", epis_v_s_u_c, dev)
     work_count = sample_step_counter(work_count, dev)
-    out, act, n_act = compact(
+    out, act, count = compact(
         activity_mask(V, U, row_active, active_v_u, dev), S, C, with_k_best)
-    profiling.count("sweep.rows.pixels", n_act)
-    if n_act == 0:
-        return out
+    count_listed("sweep.rows.pixels", count)
 
     with profiling.span("sweep.launch"):
         # the kernel computes the grid itself, operation for operation as
         # candidate_grid does
         a_coef, _, _ = kernel_scalars(U, C, params)
-        _SWEEP(epis_v_s_u_c, S, U, C, act, n_act, f32(dmin), f32(dmax),
+        _SWEEP(epis_v_s_u_c, S, U, C, act, count, V * U, f32(dmin), f32(dmax),
                dim_d, int(s_hat), f32(params.slope_factor), a_coef,
                params.mean_shift_max_iter, out.best_score, out.score_mean,
                out.best_depth, out.rbar, out.k_best, work_count,

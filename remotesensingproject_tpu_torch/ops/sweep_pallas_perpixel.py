@@ -29,12 +29,12 @@ from typing import Optional, Tuple
 import torch
 
 from ..config import DepthParams
-from ..types import DTYPE, f32
+from ..types import f32
 from ..utils import profiling
 from . import cuda_build
 from .sweep import SweepResult, sweep_pile
-from .sweep_pallas import (CHUNK, activity_mask, compact, count_pixels,
-                           kernel_scalars, sample_step_counter)
+from .sweep_pallas import (CHUNK, activity_mask, compact, count_listed,
+                           count_pixels, kernel_scalars, sample_step_counter)
 
 
 def tile_quantized_bounds(active_v_u: torch.Tensor, dmin_v_u: torch.Tensor,
@@ -47,24 +47,25 @@ def tile_quantized_bounds(active_v_u: torch.Tensor, dmin_v_u: torch.Tensor,
     V, U = active_v_u.shape
     n_tiles = -(-U // CHUNK)
     pad = n_tiles * CHUNK - U
-    inf = torch.tensor(float("inf"), dtype=DTYPE, device=dmin_v_u.device)
 
     def reduce(x, lowest):
-        fill = inf if lowest else -inf
+        # Python floats for the fill and the fallback: no device value is
+        # made from the host or read back, so the call queues its kernels
+        # and returns
+        fill = float("inf") if lowest else float("-inf")
         xt = torch.where(active_v_u, x, fill)
-        xt = torch.nn.functional.pad(xt, (0, pad), value=float(fill))
+        xt = torch.nn.functional.pad(xt, (0, pad), value=fill)
         xt = xt.reshape(V, n_tiles, CHUNK)
         red = xt.amin(dim=2) if lowest else xt.amax(dim=2)
         fallback = f32(d_bounds[0] if lowest else d_bounds[1])
-        red = torch.where(torch.isfinite(red), red,
-                          torch.full_like(red, fallback))
+        red = torch.where(torch.isfinite(red), red, fallback)
         return red.repeat_interleave(CHUNK, dim=1)[:, :U].contiguous()
 
     return reduce(dmin_v_u, True), reduce(dmax_v_u, False)
 
 
 _SWEEP = cuda_build.Entry("sweep_tiles", "rslf_sweep_tiles",
-                          "p iii p i pppp ii ff iiii pppppp s")
+                          "p iii pp i pppp ii ff iiii pppppp s")
 _PLAN = cuda_build.Entry("sweep_tiles", "rslf_sweep_tiles_plan", "iiiii p")
 
 
@@ -106,7 +107,12 @@ def sweep_pile_tiles(epis_v_s_u_c: torch.Tensor, dmin_v_u: torch.Tensor,
         (0, U - 1)); the columns read stay clamped to the volume.
 
     While tracing, the pixels swept are added to the host counter
-    ``sweep.tiles.pixels``.
+    ``sweep.tiles.pixels``; on CUDA that reads the compaction's count, a
+    sync that only tracing makes.  Untraced, the wrapper reads nothing of
+    the device: a call with no active pixel launches too, and its blocks
+    return at once.  Launches of one kernel library must all go to one
+    stream (the current stream, as every caller here queues them): each
+    hands its plan to its sweep through the library's constant memory.
 
     Returns:
       SweepResult; on CUDA zeros at the pixels not swept.
@@ -126,15 +132,13 @@ def sweep_pile_tiles(epis_v_s_u_c: torch.Tensor, dmin_v_u: torch.Tensor,
     for name, t in planes:
         cuda_build.require(name, t, dev)
     work_count = sample_step_counter(work_count, dev)
-    out, act, n_act = compact(
+    out, act, count = compact(
         activity_mask(V, U, tile_active, active_v_u, dev), S, C, with_k_best)
-    profiling.count("sweep.tiles.pixels", n_act)
-    if n_act == 0:
-        return out
+    count_listed("sweep.tiles.pixels", count)
 
     with profiling.span("sweep.launch"):
         a_coef, lo, hi = kernel_scalars(U, C, params, u_valid)
-        _SWEEP(epis_v_s_u_c, S, U, C, act, n_act, dmin_v_u, dmax_v_u,
+        _SWEEP(epis_v_s_u_c, S, U, C, act, count, V * U, dmin_v_u, dmax_v_u,
                pdmin_v_u, pdmax_v_u, dim_d, int(s_hat),
                f32(params.slope_factor), a_coef, params.mean_shift_max_iter,
                int(params.interpolation == "nearest"), lo, hi,

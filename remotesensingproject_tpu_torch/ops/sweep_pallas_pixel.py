@@ -55,7 +55,7 @@ def mean_shift_iters(params: DepthParams) -> int:
 
 
 _SWEEP = cuda_build.Entry("sweep_pixel", "rslf_sweep_pixel",
-                          "p iii p i pp ff ii ff iiii pppppp s")
+                          "p iii pp i pp ff ii ff iiii pppppp s")
 _PLAN = cuda_build.Entry("sweep_pixel", "rslf_sweep_pixel_plan", "iiii p")
 
 
@@ -95,6 +95,13 @@ def sweep_pile_pixel(epis_v_s_u_c: torch.Tensor, dmin: float, dmax: float,
       u_valid: optional (lo, hi) window of valid sample columns (default
         (0, U - 1)); the columns read stay clamped to the volume.
 
+    On CUDA the wrapper reads nothing of the device: the active pixels'
+    count stays in device memory (``sweep_pallas.compact``), and a call
+    with no active pixel launches too, its blocks returning at once.
+    Launches of one kernel library must all go to one stream (the current
+    stream, as every caller here queues them): each hands its plan to its
+    sweep through the library's constant memory.
+
     Returns:
       SweepResult; at inactive pixels the kernel leaves zeros and the
       plain version its dense values.  ``k_best`` is None on CUDA without
@@ -124,13 +131,11 @@ def sweep_pile_pixel(epis_v_s_u_c: torch.Tensor, dmin: float, dmax: float,
         cuda_build.require("dmin_v_u", dmin_v_u, dev)
         cuda_build.require("dmax_v_u", dmax_v_u, dev)
     work_count = sample_step_counter(work_count, dev)
-    out, act, n_act = compact(active_v_u, S, C, with_k_best)
-    if n_act == 0:
-        return out
+    out, act, count = compact(active_v_u, S, C, with_k_best)
 
     with profiling.span("sweep.launch"):
         a_coef, lo, hi = kernel_scalars(U, C, params, u_valid)
-        _SWEEP(epis_v_s_u_c, S, U, C, act, n_act,
+        _SWEEP(epis_v_s_u_c, S, U, C, act, count, V * U,
                dmin_v_u if per_pixel else None,
                dmax_v_u if per_pixel else None, f32(dmin), f32(dmax), dim_d,
                int(s_hat), f32(params.slope_factor), a_coef, iters,

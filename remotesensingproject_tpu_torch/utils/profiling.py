@@ -17,8 +17,11 @@ is on:
   gains no sync.
 
 The counters (what each counts is said where it is counted):
-``passes``, ``syncs.sweep_compact``, ``syncs.early_stop``,
-``syncs.verbose``, ``sweep.sample_steps`` (device),
+``passes`` (every pass queued, ``depth2d.late_passes`` among them),
+``syncs.early_stop`` (on CPU tensors and with ``verbose``
+every flag read; on a card only the late reads that waited for it),
+``depth2d.late_passes``, ``syncs.verbose``, ``sweep.sample_steps``
+(device),
 ``sweep.rows.pixels``, ``sweep.tiles.pixels``,
 ``line_conf.pixels`` (device), ``merge.launches``,
 ``alloc.device_calls``, ``ftc.levels``,

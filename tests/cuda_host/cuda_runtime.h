@@ -9,6 +9,7 @@
 #include <algorithm>
 #include <cmath>
 #include <cstddef>
+#include <cstring>
 using std::max;
 using std::min;
 #define __device__
@@ -17,6 +18,7 @@ using std::min;
 #define __launch_bounds__(...)
 #define __forceinline__ inline
 #define __shared__
+#define __constant__
 #define __align__(n) __attribute__((aligned(n)))
 struct float4 {
   float x, y, z, w;
@@ -81,4 +83,17 @@ inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+enum cudaMemcpyKind { cudaMemcpyDeviceToDevice = 3 };
+template <typename T>
+inline cudaError_t cudaGetSymbolAddress(void** p, const T& symbol) {
+  *p = (void*)&symbol;
+  return cudaSuccess;
+}
+template <typename T>
+inline cudaError_t cudaMemcpyToSymbolAsync(const T& symbol, const void* src,
+                                           size_t n, size_t offset,
+                                           cudaMemcpyKind, cudaStream_t) {
+  std::memcpy((char*)&symbol + offset, src, n);
+  return cudaSuccess;
+}
 inline const char* cudaGetErrorString(cudaError_t) { return "host"; }

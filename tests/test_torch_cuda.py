@@ -23,7 +23,11 @@ the paint with one to three payloads, and whole runs in each mode against
 the CPU.  The (v, u) mesh's operands: the pixel and the tile sweep on a
 u-haloed block with its ``u_valid`` window, and the paint from haloed
 sources with ``u_origin``, each bitwise against its plain version and
-against the whole image's result at the block's pixels."""
+against the whole image's result at the block's pixels.  A pass that never
+waits on the card: the three sweeps with the compaction's count in device
+memory (0, 1, 37, all, and more pixels than the resident blocks hold at
+the smallest group size), and whole runs under ``torch.cuda.set_sync_debug_mode("error")``
+bitwise the immediate early stop's."""
 
 import numpy as np
 import pytest
@@ -31,7 +35,8 @@ import torch
 
 import oracle
 from remotesensingproject_tpu_torch.config import DepthParams
-from remotesensingproject_tpu_torch.models.depth2d import Depth2DComputer
+from remotesensingproject_tpu_torch.models.depth2d import (
+    Depth2DComputer, center_outward_schedule)
 from remotesensingproject_tpu_torch.ops import cuda_build
 from remotesensingproject_tpu_torch.ops.median import selective_median
 from remotesensingproject_tpu_torch.ops.median_pallas import (
@@ -841,3 +846,145 @@ def test_paint_u_origin_bitwise(dev, C, n_payloads, u0):
     for a, b, w in zip(t_k, t_p, whole_t):
         assert torch.equal(a, b)
         assert torch.equal(a, w[:, :, u0:u0 + Ul])
+
+
+# ---- a pass that never waits on the card ----
+
+_SWEEP_LIB = {"pixel": "sweep_pixel", "rows": "sweep_rows",
+              "tiles": "sweep_tiles"}
+
+
+class _sync_errors:
+    """``torch.cuda.set_sync_debug_mode("error")`` for a ``with`` block:
+    any operation that waits for the card raises."""
+
+    def __enter__(self):
+        self.before = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(self.before)
+        return False
+
+
+def _count_on_card_call(dev, kind, n_active, V=6, U=70):
+    """One sweep of ``kind`` over ``n_active`` pixels ("all": every one),
+    and its plain version; returns (got, want, active, with_k)."""
+    C = 1 if kind == "pixel" else 4
+    epis = _vol(C, S=10, V=V, U=U, seed=V + U).to(dev)
+    S = epis.shape[1]
+    g = torch.Generator().manual_seed(V * U + (0 if n_active == "all"
+                                               else n_active))
+    flat = torch.zeros(V * U, dtype=torch.bool)
+    n = V * U if n_active == "all" else n_active
+    flat[torch.randperm(V * U, generator=g)[:n]] = True
+    active = flat.reshape(V, U).to(dev)
+    lo, hi, _ = _ranges(V, U, dev, V + U)
+    p = DepthParams()
+    if kind == "pixel":
+        return (lambda: sweep_pile_pixel(epis, -1.0, 1.5, 24, S // 2, p,
+                                         active, dmin_v_u=lo, dmax_v_u=hi),
+                lambda: sweep_pile(epis, lo, hi, 24, S // 2, p),
+                active, False)
+    if kind == "rows":
+        return (lambda: sweep_pile_rows(epis, -1.0, 1.5, 24, S // 2, p,
+                                        with_k_best=True, active_v_u=active),
+                lambda: sweep_rows_plain(epis,
+                                         candidate_grid(-1.0, 1.5, 24, dev),
+                                         S // 2, p, with_k_best=True),
+                active, True)
+    qlo, qhi = tile_quantized_bounds(active, lo, hi, (-1.0, 1.5))
+    return (lambda: sweep_pile_tiles(epis, qlo, qhi, 24, S // 2, p,
+                                     with_k_best=True, active_v_u=active,
+                                     pdmin_v_u=lo, pdmax_v_u=hi),
+            lambda: sweep_pile(epis, qlo, qhi, 24, S // 2, p, True, lo, hi),
+            active, True)
+
+
+@pytest.mark.parametrize("kind", ["pixel", "rows", "tiles"])
+@pytest.mark.parametrize("n_active", [0, 1, 37, "all"])
+def test_sweeps_with_the_count_in_device_memory_bitwise(dev, kind,
+                                                        n_active):
+    """The host reads no count: every call launches, an empty one too, and
+    the kernel's blocks read the count and find their groups."""
+    run, plain, active, with_k = _count_on_card_call(dev, kind, n_active)
+    lib = _SWEEP_LIB[kind]
+    n0 = cuda_build.launches[lib]
+    with _sync_errors():
+        got = run()
+    assert cuda_build.launches[lib] == n0 + 1
+    _same_sweep(got, plain(), active, with_k)
+    assert not got.best_depth[~active].any()
+    assert not got.best_score[~active].any()
+
+
+@pytest.mark.parametrize("kind", ["pixel", "rows", "tiles"])
+def test_sweeps_draw_more_groups_than_resident_blocks(dev, kind):
+    """49,152 pixels: more groups than the card's resident blocks, at the
+    largest group size; then a short list and the long one again, so that
+    each launch reads its own plan (the count and group size the device
+    works out and leaves in constant memory), not the last one's."""
+    run, plain, active, with_k = _count_on_card_call(dev, kind, "all",
+                                                     V=128, U=384)
+    run_s, plain_s, active_s, _ = _count_on_card_call(dev, kind, 37)
+    want, want_s = plain(), plain_s()
+    for _ in range(2):
+        _same_sweep(run(), want, active, with_k)
+        _same_sweep(run_s(), want_s, active_s, with_k)
+
+
+def _converging_vol(C, S=12, V=16, U=96):
+    """Every frame the same: the first pass's paint claims every confident
+    pixel of every frame, so the level converges after one pass and the
+    flag read a pass late queues one pass more."""
+    vol = _vol(C, S=S, V=V, U=U, seed=9).numpy()
+    return np.ascontiguousarray(np.repeat(vol[:, S // 2:S // 2 + 1], S, 1))
+
+
+@pytest.mark.parametrize("C,edited", [(1, False), (1, True), (4, False),
+                                      (4, True)])
+@pytest.mark.parametrize("scene", ["layers", "static"])
+def test_run_makes_no_sync_and_matches_the_immediate_stop(dev, capsys, C,
+                                                          edited, scene):
+    """A whole ``Depth2DComputer.run`` (C=1: the pixel sweep; C=4: the row
+    sweep, and the tile sweep at a bounds-edited level) under
+    ``set_sync_debug_mode("error")``: nothing waits for the card.  Its
+    state and ``passes_run`` are those of the early stop read after every
+    pass (a verbose run, which reads it so); the one pass it queues on a
+    converged state is a no-op, counted apart in ``late_passes``."""
+    S = 12
+    if scene == "layers":
+        vol = _vol(C, S=S, V=16, U=96, seed=9).numpy()
+        g = torch.Generator().manual_seed(C)
+        c = torch.rand((16, 96), generator=g) * 1.7 - 0.6
+        lo = torch.clamp(c - 0.4, -1.0, 1.5).expand(S, 16, 96).contiguous()
+        hi = torch.clamp(c + 0.4, -1.0, 1.5).expand(S, 16, 96).contiguous()
+    else:
+        # every pixel's grid holds d = 0, the static scene's disparity
+        vol = _converging_vol(C, S=S)
+        lo = torch.full((S, 16, 96), -1.0)
+        hi = torch.full((S, 16, 96), 1.0)
+    comps = []
+    for verbose in (True, False):
+        comp = Depth2DComputer(vol, -1.0, 1.0, 9, device=dev,
+                               verbose=verbose)
+        if edited:
+            comp.set_bounds(lo.to(dev), hi.to(dev))
+        if verbose:
+            comp.run()
+        else:
+            with _sync_errors():
+                comp.run()
+        comps.append(comp)
+    now, late = comps
+    assert late.passes_run == now.passes_run
+    # a pass is queued late where the immediate read stopped early
+    stopped = now.passes_run < len(center_outward_schedule(S))
+    assert (now.late_passes, late.late_passes) == (0, int(stopped))
+    if scene == "static":
+        assert late.late_passes == 1
+    for name in ("ce", "ce_mask", "disp_conf", "line_conf", "best_depth",
+                 "rbar", "claim"):
+        assert torch.equal(getattr(late.state, name),
+                           getattr(now.state, name)), name
+    capsys.readouterr()

@@ -54,9 +54,7 @@ def fake(monkeypatch):
     monkeypatch.setattr(cuda_build, "_bound", {})
     monkeypatch.setattr(cuda_build, "_libs", {})
     monkeypatch.setattr(cuda_build, "launches", collections.Counter())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda device: types.SimpleNamespace(
-                            cuda_stream=STREAM))
+    monkeypatch.setattr(cuda_build, "_stream_handle", lambda device: STREAM)
     return lib, loads
 
 
